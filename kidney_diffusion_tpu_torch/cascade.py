@@ -1,0 +1,261 @@
+"""Cascade — the Imagen-equivalent, serving half.
+
+Port of the sampling half of `kidney_diffusion_tpu/cascade.py`: per-stage
+continuous-time Gaussian diffusion, `sample_stage` (uint8 wire in and out,
+low-res noise augmentation at `lowres_sample_noise_level`, the bf16 weight
+cast, the doubled-batch classifier-free guidance branch, and the DDPM /
+DDIM / DPM-Solver++ samplers) and `sample` across a window of stages.
+
+Parameters are dicts of tensors owned by the caller, keyed by the Flax
+parameter paths (`convert.py`); a `Cascade` holds configs only. Public APIs
+take and return NHWC images in [0, 1]; diffusion runs in [-1, 1].
+
+Not ported yet: training (`stage_loss`), the EDM sampler, `spatial_shard`
+and `output_split`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import torch
+
+from .convert import Params, build_model, init_stage_params
+from .core.diffusion import (
+    NoiseSource,
+    ddim_sample_loop,
+    dpmpp_sample_loop,
+    noise_drawer,
+    sample_loop,
+)
+from .core.schedules import GaussianDiffusion
+from .device import resolve_device
+from .models.configs import CascadeConfig
+from .models.unet import resize_nearest
+
+Tensor = torch.Tensor
+
+
+def normalize_img(x: Tensor) -> Tensor:
+    return x.float() * 2.0 - 1.0
+
+
+def unnormalize_img(x: Tensor) -> Tensor:
+    return torch.clamp(x.float() * 0.5 + 0.5, 0.0, 1.0)
+
+
+def resize_image_to(x: Tensor, size: int, method: str = "nearest") -> Tensor:
+    """Resize an NHWC batch to (size, size) as `jax.image.resize` does;
+    a no-op when already that size."""
+    if method != "nearest":
+        raise NotImplementedError(f"resize method {method!r}")
+    return resize_nearest(x, size, size)
+
+
+def stage_sampler_steps(val, unet_number: int, num_stages: Optional[int] = None) -> int:
+    """Resolve a per-stage sampler step count: an int / 1-sequence applies to
+    every stage, a sequence is indexed by stage number. When `num_stages` is
+    known, any other sequence length is refused — clamping a typo'd
+    `(25, 25)` to 25/25/25 would serve the 1024² stage at 6x the intended
+    cost."""
+    if isinstance(val, (tuple, list)):
+        if num_stages is not None and len(val) not in (1, num_stages):
+            raise ValueError(
+                f"per-stage sampler step sequence {tuple(val)} has {len(val)} entries "
+                f"but the cascade has {num_stages} stages; pass one entry per stage "
+                f"(or a single int)"
+            )
+        return int(val[min(unet_number - 1, len(val) - 1)])
+    return int(val)
+
+
+def _img_from_wire(v: Optional[Tensor], device) -> Optional[Tensor]:
+    """uint8 [0, 255] -> fp32 [0, 1]; other dtypes -> fp32."""
+    if v is None:
+        return None
+    v = torch.as_tensor(v, device=device)
+    if not torch.is_floating_point(v):
+        return v.float() / 255.0
+    return v.float()
+
+
+class Cascade:
+    """Stage configs + diffusion processes for one cascade config, on one
+    device (`"cuda"` by default; `"cpu"` runs the plain versions)."""
+
+    def __init__(self, config: CascadeConfig, device="cuda"):
+        self.config = config
+        self.device = resolve_device(device)
+        self.diffusions = tuple(
+            GaussianDiffusion(st.timesteps, st.noise_schedule) for st in config.stages
+        )
+        self.lowres_diffusion = GaussianDiffusion(1000, config.lowres_noise_schedule)
+
+    def init_stage_params(self, unet_number: int,
+                          generator: Optional[torch.Generator] = None) -> Params:
+        """Fresh fp32 parameters of stage `unet_number` on this device."""
+        return init_stage_params(self.config, unet_number, generator, self.device)
+
+    @torch.no_grad()
+    def sample_stage(
+        self,
+        params: Params,
+        unet_number: int,
+        noise: NoiseSource,
+        *,
+        batch_size: int,
+        lowres_image: Optional[Tensor] = None,
+        text_embeds: Optional[Tensor] = None,
+        cond_images: Optional[Tensor] = None,
+        inpaint_images: Optional[Tensor] = None,
+        inpaint_masks: Optional[Tensor] = None,
+        inpaint_resample_times: int = 1,
+        cond_scale: float = 1.0,
+        use_ddim: bool = False,
+        ddim_steps: int = 0,
+        ddim_eta: float = 0.0,
+        dpmpp_steps: int = 0,
+        output_dtype: Optional[str] = None,
+    ) -> Tensor:
+        """Sample one stage. `lowres_image` is the previous stage's [0, 1]
+        output at any size; image inputs may be uint8 [0, 255] or float.
+        Returns [0, 1] images at this stage's size, or uint8 [0, 255] with
+        `output_dtype="uint8"`. `noise` is a `torch.Generator` on this
+        device or a callable `draw(shape)` (see `core.diffusion`)."""
+        dev = self.device
+        cfg = self.config
+        st = cfg.stage(unet_number)
+        if st.sampler == "edm":
+            raise NotImplementedError("the EDM sampler is not ported yet")
+        gd = self.diffusions[unet_number - 1]
+        size = st.image_size
+        lowres_image = _img_from_wire(lowres_image, dev)
+        cond_images = _img_from_wire(cond_images, dev)
+        inpaint_images = _img_from_wire(inpaint_images, dev)
+        if inpaint_masks is not None:
+            inpaint_masks = torch.as_tensor(inpaint_masks, device=dev).float()
+        if text_embeds is not None:
+            text_embeds = torch.as_tensor(text_embeds, device=dev)
+
+        # inference-time weight cast: every parameter in the compute dtype
+        dt = st.unet.compute_dtype
+        model = build_model(st.unet, {k: v.to(device=dev, dtype=dt) for k, v in params.items()})
+        draw = noise_drawer(noise, dev)
+
+        model_kwargs: Dict[str, Tensor] = {}
+        if st.unet.lowres_cond:
+            if lowres_image is None:
+                raise ValueError(f"stage {unet_number} needs a lowres image")
+            lowres = normalize_img(resize_image_to(lowres_image, size))
+            noise_level = torch.full((batch_size,), cfg.lowres_sample_noise_level,
+                                     dtype=torch.float32, device=dev)
+            lowres_noised, *_ = self.lowres_diffusion.q_sample(
+                lowres, noise_level, draw(lowres.shape))
+            model_kwargs["lowres_cond_img"] = lowres_noised
+            model_kwargs["lowres_noise_times"] = noise_level
+        if st.unet.cond_images_channels:
+            if cond_images is None:
+                raise ValueError(f"stage {unet_number} needs cond_images")
+            model_kwargs["cond_images"] = cond_images
+
+        has_text = cfg.condition_on_text and st.unet.text_embed_dim is not None
+        if has_text and text_embeds is None:
+            raise ValueError("this cascade is conditioned on text: pass text_embeds")
+        zeros = torch.zeros((batch_size,), dtype=torch.float32, device=dev)
+
+        if has_text and cond_scale != 1.0:
+            # doubled-batch CFG: one forward evaluates cond + uncond
+            doubled = {k: torch.cat([v, v], dim=0) for k, v in model_kwargs.items()}
+            doubled["text_embeds"] = torch.cat([text_embeds, text_embeds], dim=0)
+            doubled["cond_drop_mask"] = torch.cat([zeros, torch.ones_like(zeros)], dim=0)
+
+            def denoise_fn(x_t, t):
+                pred2 = model(torch.cat([x_t, x_t], dim=0), torch.cat([t, t], dim=0), **doubled)
+                cond_pred, uncond_pred = torch.chunk(pred2, 2, dim=0)
+                return uncond_pred + (cond_pred - uncond_pred) * cond_scale
+        else:
+            if has_text:
+                model_kwargs["text_embeds"] = text_embeds
+                model_kwargs["cond_drop_mask"] = zeros
+
+            def denoise_fn(x_t, t):
+                return model(x_t, t, **model_kwargs)
+
+        shape = (batch_size, size, size, cfg.channels)
+        loop_kw = dict(
+            objective=st.pred_objective,
+            inpaint_images=normalize_img(inpaint_images) if inpaint_images is not None else None,
+            inpaint_masks=inpaint_masks,
+            inpaint_resample_times=inpaint_resample_times,
+            device=dev,
+        )
+        if dpmpp_steps > 0:
+            out = dpmpp_sample_loop(gd, denoise_fn, shape, draw, num_steps=dpmpp_steps, **loop_kw)
+        elif use_ddim and ddim_steps > 0:
+            out = ddim_sample_loop(gd, denoise_fn, shape, draw, num_steps=ddim_steps,
+                                   eta=ddim_eta, **loop_kw)
+        else:
+            out = sample_loop(gd, denoise_fn, shape, draw, **loop_kw)
+        out = unnormalize_img(out)
+        if output_dtype == "uint8":
+            return torch.round(out * 255.0).to(torch.uint8)
+        if output_dtype is not None:
+            return out.to(getattr(torch, output_dtype))
+        return out
+
+    def sample(
+        self,
+        params_per_stage: Sequence[Optional[Params]],
+        noise: NoiseSource,
+        *,
+        batch_size: int,
+        text_embeds: Optional[Tensor] = None,
+        cond_images: Optional[Tensor] = None,
+        start_image: Optional[Tensor] = None,
+        start_at_unet_number: int = 1,
+        stop_at_unet_number: Optional[int] = None,
+        inpaint_images: Optional[Tensor] = None,
+        inpaint_masks: Optional[Tensor] = None,
+        inpaint_resample_times: int = 1,
+        cond_scale: float = 1.0,
+        ddim_steps=0,
+        ddim_eta: float = 0.0,
+        dpmpp_steps=0,
+        output_dtype: Optional[str] = None,
+    ) -> Tensor:
+        """Cascade sampling across a window of stages; each stage's [0, 1]
+        output feeds the next as its low-res image. Step counts may be
+        per-stage sequences (`stage_sampler_steps`); per stage, DPM++ takes
+        precedence over DDIM. `output_dtype` applies to the last stage's
+        output (`"uint8"`: [0, 255])."""
+        stop = stop_at_unet_number or self.config.num_stages
+        img = start_image
+        for n in range(start_at_unet_number, stop + 1):
+            st = self.config.stage(n)
+            ds = stage_sampler_steps(ddim_steps, n, self.config.num_stages)
+            ps = stage_sampler_steps(dpmpp_steps, n, self.config.num_stages)
+            stage_inpaint_images = stage_inpaint_masks = None
+            if inpaint_images is not None:
+                stage_inpaint_images = resize_image_to(
+                    _img_from_wire(inpaint_images, self.device), st.image_size)
+                m = torch.as_tensor(inpaint_masks, device=self.device)
+                if m.ndim == 3:
+                    m = m[..., None]
+                stage_inpaint_masks = resize_image_to(m, st.image_size)[..., 0]
+            img = self.sample_stage(
+                params_per_stage[n - 1], n, noise,
+                batch_size=batch_size,
+                lowres_image=img,
+                text_embeds=text_embeds,
+                cond_images=cond_images,
+                inpaint_images=stage_inpaint_images,
+                inpaint_masks=stage_inpaint_masks,
+                inpaint_resample_times=inpaint_resample_times,
+                cond_scale=cond_scale,
+                use_ddim=ds > 0,
+                ddim_steps=ds,
+                ddim_eta=ddim_eta,
+                dpmpp_steps=ps,
+                output_dtype=output_dtype if n == stop else None,
+            )
+        return img
