@@ -13,18 +13,28 @@ Phases, each printing its own lines and seconds:
 3. kernels: each kernel's wrapper on card tensors at the flagship shapes,
    held against its plain PyTorch version on the same inputs with the
    stated tolerances, and timed (CUDA events) beside the plain version and
-   one PyTorch library call as a yardstick;
-4. forward: a full-width stage-1 U-Net forward through the kernels on the
-   card against the plain path on the CPU, same weights and inputs;
-5. serve: the flagship `ultra_res(0, "v_param")` cascade at full width,
+   one PyTorch library call as a yardstick: conv3x3 in bf16 (with its range
+   epilogue and bf16-bias rounding) and in its int8 mode, and attention;
+4. probe: the int8 tap-product probe's three kernels against their plain
+   versions, then its entry point (`tools.probe_int8.run`) at REPS
+   back-to-back launches per variant, with bounds and one-call yardsticks;
+5. forward: a full-width stage-1 U-Net forward through the kernels on the
+   card against the plain path on the CPU, same weights and inputs; then
+   the full-width stage-3 U-Net with the int8 + fp8 serving overrides at
+   the 256² training crop, the same way;
+6. serve: the flagship `ultra_res(0, "v_param")` cascade at full width,
    weights made on the card from --seed, answers (A) one 1024² patch at the
-   shipped serving mix dpmpp_steps=(25, 25, 0), ddim_steps=(0, 0, 4) and
+   shipped serving mix dpmpp_steps=(25, 25, 0), ddim_steps=(0, 0, 4),
    (B) a batch of 2 from stage 1 alone on its ancestral loop cut to 8 steps,
-   through `Cascade.sample`. Launch counts are zeroed just before each
-   request and read just after; they must equal one launch per 3x3 conv
-   and per attention layer of every U-Net forward, so every such layer of
-   the path ran its kernel;
-6. with `--profile` only: request A again stage by stage under
+   and (C) request A's patch with the shipped serving overrides
+   (`serving_overrides(quant="int8", storage="float8_e4m3fn")`: stage 3 on
+   w8a8 int8 convs with fp8 activation storage), through `Cascade.sample`.
+   Launch counts are zeroed just before each request and read just after;
+   they must equal one launch per 3x3 conv (bf16 or int8 as
+   `_quant_site` gates it) and per attention layer of every U-Net forward,
+   so every such layer of the path ran its kernel. A and C are then run
+   again under torch.profiler for their device busy time;
+7. with `--profile` only: requests A and C again stage by stage under
    torch.profiler (device busy time, idle share, top kernels).
 
 Then one JSON line with every kernel's numbers, the `nvidia-smi` line, and
@@ -37,6 +47,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -49,9 +60,15 @@ from kidney_diffusion_tpu_torch.convert import build_model
 from kidney_diffusion_tpu_torch.kernels import _build
 from kidney_diffusion_tpu_torch.kernels import attention as attn_mod
 from kidney_diffusion_tpu_torch.kernels import conv3x3 as conv_mod
-from kidney_diffusion_tpu_torch.models.blocks import Conv3x3, CrossAttention, SelfAttention
-from kidney_diffusion_tpu_torch.models.configs import ultra_res
+from kidney_diffusion_tpu_torch.models.blocks import (
+    Conv3x3,
+    CrossAttention,
+    SelfAttention,
+    _quant_site,
+)
+from kidney_diffusion_tpu_torch.models.configs import serving_overrides, ultra_res
 from kidney_diffusion_tpu_torch.models.unet import EfficientUNet
+from kidney_diffusion_tpu_torch.tools import probe_int8
 
 # request A: the shipped serving mix; (stage, sampler steps = U-Net forwards)
 SERVE_A = dict(dpmpp_steps=(25, 25, 0), ddim_steps=(0, 0, 4))
@@ -59,13 +76,19 @@ FORWARDS_A = ((1, 25), (2, 25), (3, 4))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 BF16_ULP = 2.0**-7  # spacing of bf16 values in [1, 2)
 
 CONV_SOURCE = "kidney_diffusion_tpu_torch/kernels/csrc/conv3x3.cu"
 CONV_REPLACES = "kidney_diffusion_tpu/kernels/conv3x3.py:394"
+# the int8 mode: a mode of the same kernel; on the TPU the int8 conv ran in
+# XLA (`_int8_conv`), the Pallas conv being the kernel it extends
+CONV_INT8_REPLACES = "kidney_diffusion_tpu/kernels/conv3x3.py:394"
 ATTN_SOURCE = "kidney_diffusion_tpu_torch/kernels/csrc/attention.cu"
 ATTN_REPLACES = "kidney_diffusion_tpu/kernels/attention.py:68"
+PROBE_SOURCE = "kidney_diffusion_tpu_torch/kernels/csrc/probe_int8.cu"
+PROBE_REPLACES = "tools/probe_int8_pallas.py:74"
 
 # name: (batch*chunks, rows, width, cin, cout, chunks, prologue, stats)
 CONV_CASES = {
@@ -74,6 +97,25 @@ CONV_CASES = {
     "c_stage1_16x16_768": (1, 16, 16, 768, 768, 0, True, True),
     "d_stage3_final_conv": (16, 64, 1024, 128, 3, 16, False, False),
     "e_stage3_skip_concat_64": (16, 4, 64, 2048, 1024, 16, True, True),
+}
+# bf16 mode, serving-path options on the shapes above (+ the stage-1 init
+# conv, the unchunked call site of the bf16-bias rounding):
+# name: (batch*chunks, rows, width, cin, cout, chunks, prologue, stats, range, bias_in_dtype)
+CONV_OPTION_CASES = {
+    "a_range": (16, 32, 512, 128, 128, 16, True, True, True, False),
+    "b_range": (16, 64, 1024, 6, 128, 16, False, False, True, False),
+    "c_bias_in_dtype": (1, 16, 16, 768, 768, 0, True, True, False, True),
+    "f_stage1_init_conv_bias_in_dtype": (1, 64, 64, 3, 256, 0, False, False, False, True),
+}
+# int8 mode at the flagship stage-3 shapes; a_max "bound" = a given bound,
+# None = dynamic amax: name: (batch*chunks, rows, width, cin, cout, chunks,
+# prologue, stats, range, a_max)
+INT8_CASES = {
+    "a_stage3_chunked_512_int8": (16, 32, 512, 128, 128, 16, True, True, True, "bound"),
+    "a_dynamic_amax_int8": (16, 32, 512, 128, 128, 16, True, True, True, None),
+    "e_skip_concat_64_int8": (16, 4, 64, 2048, 1024, 16, True, True, True, "bound"),
+    "g_unchunked_64_int8": (2, 64, 64, 256, 256, 0, False, True, True, "bound"),
+    "h_upsample_1024_int8": (16, 64, 1024, 128, 128, 16, False, False, True, "bound"),
 }
 # name: (batch, nq, nk, heads, dim_head)
 ATTN_CASES = {
@@ -89,6 +131,12 @@ CONV_TOL = {"y": (2 * BF16_ULP, 2.0**-8), "stats": (1e-3, 1e-4)}
 ATTN_TOL = (4 * BF16_ULP, 2.0**-7)
 # the full-width forward compounds one-ulp rounding flips over ~100 layers
 FORWARD_TOL = (0.25, 2.0**-4)
+# the int8 + fp8 forward: int8 rounding turns a one-ulp bf16 flip near a
+# quantization boundary into a whole int8 step, and fp8 storage keeps 3
+# mantissa bits (the JAX package's own jitted and eager runs of a tiny int8 +
+# fp8 U-Net differ by 0.105 normwise); max abs err <= the largest value,
+# 2^-3 normwise
+QUANT_FORWARD_TOL = (1.0, 2.0**-3)
 
 
 def log(msg: str) -> None:
@@ -133,9 +181,40 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_BF16_FLOPS * 1e3
+def bound_ms(n_bytes: float, n_ops: float, peak_ops: float = PEAK_BF16_FLOPS):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def require_equal(name: str, got, ref) -> float:
+    """Bit-equality of a kernel's output with its plain version's."""
+    n_diff = (got != ref).sum().item()
+    log(f"  {name}: bit-equal {n_diff == 0} ({n_diff} of {got.numel()} elements differ)")
+    require(n_diff == 0, f"{name}: kernel output is not bit-equal to its plain version")
+    return 0.0
+
+
+def check_range_of_output(name: str, out, ranges) -> None:
+    """A range epilogue's [max, min], rounded to bf16, must be exactly the
+    output's own per-channel max and min (rounding is monotone)."""
+    ok = (torch.equal(ranges[:, 0].bfloat16(), out.amax(dim=(1, 2)))
+          and torch.equal(ranges[:, 1].bfloat16(), out.amin(dim=(1, 2))))
+    log(f"  {name}: range == [max, min] of its own output: {ok}")
+    require(ok, f"{name}: range epilogue disagrees with the output")
+
+
+def conv_inputs(gen, nb, h, w, cin, cout, chunks, pro):
+    dev = torch.device("cuda")
+    x = torch.randn((nb, h, w, cin), generator=gen, device=dev).bfloat16()
+    wk = (torch.randn((3, 3, cin, cout), generator=gen, device=dev) / (9 * cin) ** 0.5).bfloat16()
+    b = torch.randn((cout,), generator=gen, device=dev)
+    p = None
+    if pro:  # per-image affine repeated over its chunks, as GroupNorm makes it
+        n_img = nb // max(chunks, 1)
+        p = torch.randn((n_img, 2, cin), generator=gen, device=dev)
+        p[:, 0] = p[:, 0].abs() + 0.5
+        p = p.repeat_interleave(max(chunks, 1), dim=0)
+    return x, wk, b, p
 
 
 def phase_device():
@@ -156,12 +235,12 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    seconds = _build.build(["conv3x3", "attention"])
+    seconds = _build.build(["conv3x3", "attention", "probe_int8"])
     for name, report in _build.PTXAS_REPORTS.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    conv_mod._lib(), attn_mod._lib()  # load both libraries through ctypes
+    conv_mod._lib(), attn_mod._lib(), probe_int8._lib()  # load the libraries through ctypes
     log(f"[build] nvcc sm_90a -> ctypes: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     log(f"[build] {time.perf_counter() - t0:.1f} s")
 
@@ -172,19 +251,10 @@ def phase_kernels(gen):
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False  # the plain versions run in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = {"conv3x3": [], "attention": []}
+    rows = {"conv3x3": [], "conv3x3_int8": [], "attention": []}
 
     for case, (nb, h, w, cin, cout, chunks, pro, stats) in CONV_CASES.items():
-        x = torch.randn((nb, h, w, cin), generator=gen, device=dev).bfloat16()
-        wk = (torch.randn((3, 3, cin, cout), generator=gen, device=dev)
-              / (9 * cin) ** 0.5).bfloat16()
-        b = torch.randn((cout,), generator=gen, device=dev)
-        p = None
-        if pro:  # per-image affine repeated over its chunks, as GroupNorm makes it
-            n_img = nb // max(chunks, 1)
-            p = torch.randn((n_img, 2, cin), generator=gen, device=dev)
-            p[:, 0] = p[:, 0].abs() + 0.5
-            p = p.repeat_interleave(max(chunks, 1), dim=0)
+        x, wk, b, p = conv_inputs(gen, nb, h, w, cin, cout, chunks, pro)
         kw = dict(pro=p, want_stats=stats, chunks=chunks)
         got = conv_mod.conv3x3(x, wk, b, **kw)
         ref = conv_mod.conv3x3_plain(x, wk, b, **kw)
@@ -211,6 +281,61 @@ def phase_kernels(gen):
         rows["conv3x3"].append(dict(case=case, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                     bound_ms=bms, bound_by=by, library_ms=lib_ms))
 
+    for case, (nb, h, w, cin, cout, chunks, pro, stats, rng_, bid) in CONV_OPTION_CASES.items():
+        x, wk, b, p = conv_inputs(gen, nb, h, w, cin, cout, chunks, pro)
+        kw = dict(pro=p, want_stats=stats, chunks=chunks, want_range=rng_, bias_in_dtype=bid)
+        got = conv_mod.conv3x3(x, wk, b, **kw)
+        ref = conv_mod.conv3x3_plain(x, wk, b, **kw)
+        torch.cuda.synchronize()
+        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        log(f"[kernels] conv3x3 {case}: x {tuple(x.shape)} -> {cout}, chunks={chunks}, "
+            f"prologue={pro}, stats={stats}, range={rng_}, bias_in_dtype={bid}")
+        err = check("y", got[0].float(), ref[0].float(), CONV_TOL["y"])
+        if stats:
+            check("stats", got[1], ref[1], CONV_TOL["stats"])
+        if rng_:
+            check("range", got[-1], ref[-1], CONV_TOL["y"])
+            check_range_of_output("range", got[0], got[-1])
+        rows["conv3x3"].append(dict(case=case, max_abs_err=err))
+
+    for case, (nb, h, w, cin, cout, chunks, pro, stats, rng_, am) in INT8_CASES.items():
+        x, wk, b, p = conv_inputs(gen, nb, h, w, cin, cout, chunks, pro)
+        xin = conv_mod.apply_prologue(x, p) if pro else x
+        # a true bound a little above the input's amax, as range propagation gives
+        a_max = (1.25 * xin.float().abs().amax()) if am == "bound" else None
+        w_q = conv_mod.quantize_weights(wk)
+        kw = dict(pro=p, want_stats=stats, chunks=chunks, quant=True, a_max=a_max,
+                  want_range=rng_, w_q=w_q)
+        got = conv_mod.conv3x3(x, wk, b, **kw)
+        ref = conv_mod.conv3x3_plain(x, wk, b, **kw)
+        torch.cuda.synchronize()
+        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        log(f"[kernels] conv3x3 int8 {case}: x {tuple(x.shape)} -> {cout}, chunks={chunks}, "
+            f"prologue={pro}, stats={stats}, range={rng_}, a_max={am or 'dynamic'}")
+        if pro:  # the prologue's silu may round differently: CONV_TOL
+            err = check("y", got[0].float(), ref[0].float(), CONV_TOL["y"])
+            if rng_:
+                check("range", got[-1], ref[-1], CONV_TOL["y"])
+        else:  # exact int32 sums, the same scales, the same rounding steps
+            err = require_equal("y", got[0], ref[0])
+            if rng_:
+                require_equal("range", got[-1], ref[-1])
+        if stats:
+            check("stats", got[1], ref[1], CONV_TOL["stats"])
+        if rng_:
+            check_range_of_output("range", got[0], got[-1])
+        iters = 20 if nb * h * w * cin * cout > 1e9 else 50
+        ms = time_ms(lambda: conv_mod.conv3x3_cuda(x, wk, b, **kw), iters)
+        plain_ms = time_ms(lambda: conv_mod.conv3x3_plain(x, wk, b, **kw), iters)
+        n_ops = 2.0 * nb * h * w * 9 * cin * cout
+        n_bytes = 2.0 * (x.numel() + nb * h * w * cout) + 1.0 * wk.numel() + 4.0 * cout
+        n_bytes += 4.0 * (p.numel() if p is not None else 0) + 8.0 * nb * cout * (stats + rng_)
+        bms, by = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS)
+        log(f"  ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=none (no int8 conv in PyTorch "
+            f"on CUDA) bound_ms={bms:.4f} ({by}) -> {n_ops / ms / 1e9:.1f} TOP/s")
+        rows["conv3x3_int8"].append(dict(case=case, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                         bound_ms=bms, bound_by=by, library_ms=None))
+
     for case, (b, nq, nk, hh, d) in ATTN_CASES.items():
         q, k, v = (torch.randn((b, n, hh, d), generator=gen, device=dev).bfloat16()
                    for n in (nq, nk, nk))
@@ -234,6 +359,64 @@ def phase_kernels(gen):
     return rows
 
 
+def phase_probe():
+    """The int8 tap-product probe: each variant's kernel against its plain
+    version, then the probe's own entry point timed at REPS launches."""
+    t0 = time.perf_counter()
+    inputs = probe_int8.make_inputs("cuda")
+    m, k, n, taps = probe_int8.M, probe_int8.K, probe_int8.N, probe_int8.TAPS
+    n_ops = probe_int8.ops_per_call()
+    errs = {}
+    for variant in probe_int8.VARIANTS:
+        args = inputs[variant]
+        got = probe_int8.probe(variant, *args)
+        ref = probe_int8.probe_plain(variant, *args)
+        torch.cuda.synchronize()
+        log(f"[probe] {variant}: x {tuple(args[0].shape)} {args[0].dtype}, "
+            f"w {tuple(args[1].shape)} {args[1].dtype}")
+        if variant == "bf16_dot":
+            errs[variant] = check("o", got.float(), ref.float(), CONV_TOL["y"])
+        else:
+            errs[variant] = require_equal("o", got, ref)
+
+    # the entry point, as `python -m kidney_diffusion_tpu_torch.tools.probe_int8` runs it
+    for name in probe_int8.LAUNCHES:
+        probe_int8.LAUNCHES[name] = 0
+    results = {r["variant"]: r for r in probe_int8.run("cuda")}
+    launches = dict(probe_int8.LAUNCHES)
+    log(f"[probe] entry point launches: {launches}")
+    require(all(launches[v] == probe_int8.REPS + 1 for v in probe_int8.VARIANTS), str(launches))
+
+    # one-call yardsticks of the same function: x repeated along K against
+    # the taps stacked along K is the tap sum as one product (prepared once)
+    x_rep = {v: inputs[v][0].repeat(1, taps) for v in ("bf16_dot", "int8_dot")}
+    w_cat = {v: inputs[v][1].reshape(taps * k, n) for v in ("bf16_dot", "int8_dot")}
+    lib_ms = {"bf16_dot": time_ms(lambda: torch.matmul(x_rep["bf16_dot"], w_cat["bf16_dot"]), 50),
+              "int8_dot": time_ms(lambda: torch._int_mm(x_rep["int8_dot"], w_cat["int8_dot"]), 50)}
+    lib_name = {"bf16_dot": "torch.matmul bf16 (M x 9K) . (9K x N)",
+                "int8_dot": "torch._int_mm (M x 9K) . (9K x N)"}
+    rows = {}
+    for variant in probe_int8.VARIANTS:
+        xb = 2 if variant != "int8_dot" else 1
+        wb = 2 if variant == "bf16_dot" else 1
+        n_bytes = m * k * xb + taps * k * n * wb + 2.0 * m * n + 4.0
+        bms, by = bound_ms(n_bytes, n_ops,
+                           PEAK_BF16_FLOPS if variant == "bf16_dot" else PEAK_INT8_OPS)
+        r = results[variant]
+        lm = lib_ms.get(variant)
+        log(f"[probe] {variant}: {r['us_per_call']:.2f} us/call, "
+            f"{r['effective_tops']:.1f} TOP/s effective, bound {bms * 1e3:.2f} us ({by}); "
+            f"library {lib_name.get(variant, 'none')}: "
+            f"{'%.2f us' % (lm * 1e3) if lm is not None else 'none'}")
+        plain_ms = time_ms(lambda: probe_int8.probe_plain(variant, *inputs[variant]), 5)
+        rows[variant] = dict(name=f"probe_int8 {variant}", launches=launches[variant],
+                             max_abs_err=errs[variant], ms=r["us_per_call"] / 1e3,
+                             plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lm,
+                             effective_tops=r["effective_tops"])
+    log(f"[probe] {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def phase_forward(cascade: Cascade, params, gen):
     """Full-width stage-1 forward: kernels on the card vs plain on the CPU."""
     t0 = time.perf_counter()
@@ -253,113 +436,272 @@ def phase_forward(cascade: Cascade, params, gen):
     log(f"[forward] {time.perf_counter() - t0:.1f} s")
 
 
+def conv_sites(unet_cfg, size: int):
+    """(name, int8?) of every 3x3 conv a forward at size x size runs, derived
+    from the layer names and the level structure (not from a run): a
+    level-i layer sees size / 2^(i+1) pixels a side with `memory_efficient`
+    downsampling at each level's entry, size / 2^i without; an upsample's
+    conv sees twice its level's side; init, final block and final conv see
+    the full side. Where `quant_conv` is on, a conv is int8 if `_quant_site`
+    admits that shape; the final conv never is, nor the unchunked init conv
+    (`nn.Conv` in the JAX forward)."""
+    L, sc = unet_cfg.num_levels, unet_cfg.spatial_chunks
+    ch = sc if sc and size % (sc * 2**L) == 0 and size // sc >= 2 else 0
+    me = unet_cfg.memory_efficient
+
+    def side(level):
+        return size // 2 ** (level + 1) if me else size // 2**level
+
+    sites = []
+    for name, mod in build_model(unet_cfg).named_modules():
+        if not isinstance(mod, Conv3x3):
+            continue
+        top = name.split(".")[0]
+        m = re.fullmatch(r"(down|up)(\d+)_(\w+)", top)
+        if top.startswith("mid"):
+            r = side(L - 1)
+        elif m is None:  # init_conv, final_block, final_conv
+            r = size
+        elif m.group(3) == "upsample":
+            r = 2 * side(int(m.group(2)))
+        else:
+            r = side(int(m.group(2)))
+        cin, cout = mod.kernel.shape[2], mod.kernel.shape[3]
+        shape = (max(ch, 1), r // max(ch, 1), r, cin)
+        int8 = (unet_cfg.quant_conv == "int8" and top != "final_conv"
+                and not (top == "init_conv" and not ch) and _quant_site(shape, cout, ch))
+        sites.append((name, int8))
+    return sites
+
+
 def expected_launches(cfg, forwards) -> dict:
     """Kernel launches that `forwards` U-Net calls per stage must make: one
-    per Conv3x3 module (every 3x3 conv) and one per attention module."""
-    counts = {"conv3x3": 0, "attention": 0}
+    per Conv3x3 module (every 3x3 conv; bf16 or int8 as `conv_sites` gates
+    it) and one per attention module."""
+    counts = {"conv3x3": 0, "conv3x3_int8": 0, "attention": 0}
     for n, fwd in forwards:
-        mods = list(build_model(cfg.stage(n).unet).modules())
-        counts["conv3x3"] += fwd * sum(isinstance(m, Conv3x3) for m in mods)
+        st = cfg.stage(n)
+        sites = conv_sites(st.unet, st.image_size)
+        counts["conv3x3_int8"] += fwd * sum(q for _, q in sites)
+        counts["conv3x3"] += fwd * sum(not q for _, q in sites)
         counts["attention"] += fwd * sum(isinstance(m, (SelfAttention, CrossAttention))
-                                         for m in mods)
+                                         for m in build_model(st.unet).modules())
     return counts
 
 
-def phase_profile(cascade: Cascade, params, gen):
-    """Request A stage by stage: wall seconds (unprofiled), device busy time
-    from a second, profiled run, the idle share 1 - busy / wall, and the
+def zero_launches() -> None:
+    conv_mod.LAUNCHES = conv_mod.LAUNCHES_INT8 = attn_mod.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    return {"conv3x3": conv_mod.LAUNCHES, "conv3x3_int8": conv_mod.LAUNCHES_INT8,
+            "attention": attn_mod.LAUNCHES}
+
+
+def kernel_times(prof):
+    """Device kernels of a torch.profiler run and each one's device time (us)."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(  # noqa: E731
+        e, "self_cuda_time_total", 0)
+    return kernels, dev_us
+
+
+def device_busy_s(fn) -> float:
+    """Device busy seconds (sum of kernel times) of `fn` under torch.profiler,
+    tracing the device only (a host trace of a whole request takes minutes
+    to summarise)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, dev_us = kernel_times(prof)
+    return sum(dev_us(e) for e in kernels) / 1e6
+
+
+def phase_quant_forward(cascade: Cascade, params, gen):
+    """Full-width stage 3 with the int8 + fp8 serving overrides, at the 256²
+    training crop with spatial_chunks=16 (its three finest levels are int8
+    sites): kernels on the card vs plain on the CPU. The same forward without
+    fp8 storage, and exact, show where the card and the CPU part: rounding
+    flips, amplified by int8, then by fp8."""
+    t0 = time.perf_counter()
+    unet = cascade.config.stage(3).unet
+    bf16 = {k: v.bfloat16() for k, v in params.items()}
+    cpu_bf16 = {k: v.cpu() for k, v in bf16.items()}
+    x = torch.randn((1, 256, 256, 3), generator=gen, device="cuda")
+    lr = torch.rand((1, 256, 256, 3), generator=gen, device="cuda") * 2 - 1
+    t = torch.full((1,), 0.37, device="cuda")
+    kw = dict(lowres_cond_img=lr, lowres_noise_times=torch.full((1,), 0.2, device="cuda"))
+    cpu_kw = {k: v.cpu() for k, v in kw.items()}
+    with torch.no_grad():
+        zero_launches()
+        got = build_model(unet, bf16)(x, t, **kw).float().cpu()
+        launches = read_launches()
+        t1 = time.perf_counter()
+        ref = build_model(unet, cpu_bf16)(x.cpu(), t.cpu(), **cpu_kw).float()
+        t_cpu = time.perf_counter() - t1
+        spread = {}
+        for label, variant in (("exact bf16", dict(quant_conv=None, storage_dtype=None)),
+                               ("int8, bf16 storage", dict(storage_dtype=None))):
+            u = dataclasses.replace(unet, **variant)
+            g = build_model(u, bf16)(x, t, **kw).float().cpu()
+            r = build_model(u, cpu_bf16)(x.cpu(), t.cpu(), **cpu_kw).float()
+            spread[label] = ((g - r).norm() / r.norm()).item()
+            if label == "exact bf16":
+                exact = g
+    want = expected_launches(dataclasses.replace(
+        cascade.config, stages=cascade.config.stages[:2] + (dataclasses.replace(
+            cascade.config.stage(3), image_size=256),)), ((3, 1),))
+    log(f"[forward] stage 3 int8 + fp8 storage, full width, 256² batch 1, spatial_chunks="
+        f"{unet.spatial_chunks}: launches {launches} (expected {want}), "
+        f"cpu plain {t_cpu:.1f} s")
+    require(launches == want and launches["conv3x3_int8"] > 0, str((launches, want)))
+    log(f"[forward] int8 + fp8 vs the exact bf16 path on the card: normwise "
+        f"{((got - exact).norm() / exact.norm()).item():.3e}; card vs CPU normwise: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in spread.items()))
+    check("stage-3 int8 + fp8 output", got, ref, QUANT_FORWARD_TOL)
+    log(f"[forward] {time.perf_counter() - t0:.1f} s")
+
+
+class StageClock:
+    """CUDA events at every U-Net forward's entry and exit, by stage, and a
+    count of non-finite outputs (every U-Net output must be finite)."""
+
+    def __init__(self, cfg):
+        self.unets = [st.unet for st in cfg.stages]
+        self.events = {}
+        self.bad = torch.zeros((), dtype=torch.int64, device="cuda")
+        self.n_fwd = 0
+        self._open = None
+
+    def pre(self, module, args):
+        if isinstance(module, EfficientUNet):
+            self._open = torch.cuda.Event(enable_timing=True)
+            self._open.record()
+
+    def post(self, module, args, output):
+        if isinstance(module, EfficientUNet):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            stage = self.unets.index(module.config) + 1
+            self.events.setdefault(stage, []).append((self._open, end))
+            self.bad.add_((~torch.isfinite(output)).sum())
+            self.n_fwd += 1
+
+    def per_stage(self) -> dict:
+        """stage -> (forwards, mean forward ms, stage span ms per step)."""
+        out = {}
+        for stage, ev in sorted(self.events.items()):
+            fwd_ms = sum(s.elapsed_time(e) for s, e in ev) / len(ev)
+            out[stage] = (len(ev), fwd_ms, ev[0][0].elapsed_time(ev[-1][1]) / len(ev))
+        return out
+
+
+def phase_profile(cascades, params, gen):
+    """Requests A and C stage by stage: wall seconds (unprofiled), device busy
+    time from a second, profiled run, the idle share 1 - busy / wall, and the
     kernels that take the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    img = None
-    for n, steps in FORWARDS_A:
-        kw = dict(dpmpp_steps=steps) if n < 3 else dict(use_ddim=True, ddim_steps=steps)
+    for label, cascade in cascades.items():
+        img = None
+        for n, steps in FORWARDS_A:
+            kw = dict(dpmpp_steps=steps) if n < 3 else dict(use_ddim=True, ddim_steps=steps)
 
-        def run():
-            out = cascade.sample_stage(params[n - 1], n, gen, batch_size=1,
-                                       lowres_image=img, **kw)
+            def run():
+                out = cascade.sample_stage(params[n - 1], n, gen, batch_size=1,
+                                           lowres_image=img, **kw)
+                torch.cuda.synchronize()
+                return out
+
             torch.cuda.synchronize()
-            return out
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()  # unprofiled: the wall time the idle share is taken against
-        wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            img = run()
-        # device kernels only: CPU-side ops report their kernels' time again
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(  # noqa: E731
-            e, "self_cuda_time_total", 0)
-        busy = sum(dev_us(e) for e in kernels) / 1e6
-        log(f"[profile] stage {n}: {steps} steps, wall {wall:.3f} s "
-            f"({wall / steps * 1e3:.1f} ms/step), device busy {busy:.3f} s, "
-            f"idle share {max(0.0, 1 - busy / wall):.3f}")
-        for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
-            log(f"[profile]   {dev_us(e) / 1e3:9.2f} ms {e.count:6d} calls  {e.key[:90]}")
+            t0 = time.perf_counter()
+            run()  # unprofiled: the wall time the idle share is taken against
+            wall = time.perf_counter() - t0
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                img = run()
+            kernels, dev_us = kernel_times(prof)
+            busy = sum(dev_us(e) for e in kernels) / 1e6
+            log(f"[profile] {label} stage {n}: {steps} steps, wall {wall:.3f} s "
+                f"({wall / steps * 1e3:.1f} ms/step), device busy {busy:.3f} s, "
+                f"idle share {max(0.0, 1 - busy / wall):.3f}")
+            for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
+                log(f"[profile]   {dev_us(e) / 1e3:9.2f} ms {e.count:6d} calls  {e.key[:90]}")
 
 
-def phase_serve(cascade: Cascade, params, gen):
-    t0 = time.perf_counter()
-    cfg = cascade.config
-    bad = torch.zeros((), dtype=torch.int64, device="cuda")
-    n_fwd = [0]
-
-    def finite_hook(module, args, output):  # every U-Net output must be finite
-        if isinstance(module, EfficientUNet):
-            bad.add_((~torch.isfinite(output)).sum())
-            n_fwd[0] += 1
-
-    hook = torch.nn.modules.module.register_module_forward_hook(finite_hook)
+def serve_request(label, cascade, params, gen, forwards, **kw):
+    """One request through `Cascade.sample` with the launch counts zeroed just
+    before and read just after; checks every forward ran and was finite and
+    the counts equal the model's layers. Returns the output, wall seconds,
+    launches, peak GiB and the per-stage CUDA-event times."""
+    clock = StageClock(cascade.config)
+    hooks = [torch.nn.modules.module.register_module_forward_pre_hook(clock.pre),
+             torch.nn.modules.module.register_module_forward_hook(clock.post)]
     try:
-        # (A) one 1024² patch at the shipped serving mix
-        conv_mod.LAUNCHES = attn_mod.LAUNCHES = 0
+        zero_launches()
         torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
         t1 = time.perf_counter()
-        out = cascade.sample(params, gen, batch_size=1, output_dtype="uint8", **SERVE_A)
+        out = cascade.sample(params, gen, **kw)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t1
-        launches = {"conv3x3": conv_mod.LAUNCHES, "attention": attn_mod.LAUNCHES}
-        log(f"[serve] A: {sec:.2f} s, out {tuple(out.shape)} {out.dtype} "
-            f"range [{out.min().item()}, {out.max().item()}] mean {out.float().mean().item():.2f}, "
-            f"unet forwards {n_fwd[0]}, non-finite unet outputs {bad.item()}, "
-            f"launches conv3x3={launches['conv3x3']} attention={launches['attention']}, "
-            f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        require(tuple(out.shape) == (1, 1024, 1024, 3) and out.dtype == torch.uint8, str(out.shape))
-        require(bad.item() == 0 and n_fwd[0] == sum(f for _, f in FORWARDS_A),
-                f"non-finite outputs {bad.item()}, forwards {n_fwd[0]}")
-        # every conv3x3 and attention site of every forward went through its kernel
-        want = expected_launches(cfg, FORWARDS_A)
-        log(f"[serve] A: launches expected from the model's layers: {want}")
-        require(launches == want and min(launches.values()) > 0, str((launches, want)))
-
-        # (B) stage 1 alone, ancestral loop cut to 8 steps, batch 2
-        cfg_b = dataclasses.replace(
-            cfg, stages=(dataclasses.replace(cfg.stage(1), timesteps=8),) + cfg.stages[1:])
-        cascade_b = Cascade(cfg_b, device="cuda")
-        conv_mod.LAUNCHES = attn_mod.LAUNCHES = 0
-        n_fwd[0] = 0
-        torch.cuda.reset_peak_memory_stats()
-        t1 = time.perf_counter()
-        out_b = cascade_b.sample(params, gen, batch_size=2, stop_at_unet_number=1)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t1
-        log(f"[serve] B: {sec:.2f} s, out {tuple(out_b.shape)} {out_b.dtype} "
-            f"range [{out_b.min().item():.4f}, {out_b.max().item():.4f}], "
-            f"finite {torch.isfinite(out_b).all().item()}, unet forwards {n_fwd[0]}, "
-            f"non-finite unet outputs {bad.item()}, launches conv3x3={conv_mod.LAUNCHES} "
-            f"attention={attn_mod.LAUNCHES}, "
-            f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        require(tuple(out_b.shape) == (2, 64, 64, 3) and torch.isfinite(out_b).all().item(),
-                f"request B output {tuple(out_b.shape)}")
-        require(0.0 <= out_b.min().item() and out_b.max().item() <= 1.0, "request B range")
-        require(bad.item() == 0 and n_fwd[0] == 8,
-                f"non-finite outputs {bad.item()}, forwards {n_fwd[0]}")
-        want = expected_launches(cfg, ((1, 8),))
-        require({"conv3x3": conv_mod.LAUNCHES, "attention": attn_mod.LAUNCHES} == want, str(want))
+        launches = read_launches()
     finally:
-        hook.remove()
+        for h in hooks:
+            h.remove()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[serve] {label}: {sec:.2f} s, out {tuple(out.shape)} {out.dtype} "
+        f"range [{out.min().item():.4g}, {out.max().item():.4g}] "
+        f"mean {out.float().mean().item():.4g}, unet forwards {clock.n_fwd}, "
+        f"non-finite unet outputs {clock.bad.item()}, launches {launches}, "
+        f"max_memory_allocated {peak:.2f} GiB")
+    require(clock.bad.item() == 0 and clock.n_fwd == sum(f for _, f in forwards),
+            f"{label}: non-finite outputs {clock.bad.item()}, forwards {clock.n_fwd}")
+    # every conv3x3 and attention site of every forward went through its kernel
+    want = expected_launches(cascade.config, forwards)
+    log(f"[serve] {label}: launches expected from the model's layers: {want}")
+    require(launches == want, f"{label}: {launches} != {want}")
+    return out, sec, launches, peak, clock.per_stage()
+
+
+def phase_serve(cascades, params, gen):
+    t0 = time.perf_counter()
+    cfg = cascades["A"].config
+    launches, walls, peaks, stages = {}, {}, {}, {}
+    for label in ("A", "C"):
+        # (A) one 1024² patch at the shipped serving mix; (C) the same on the
+        # shipped serving overrides: stage 3 on int8 convs with fp8 storage
+        out, walls[label], launches[label], peaks[label], stages[label] = serve_request(
+            label, cascades[label], params, gen, FORWARDS_A, batch_size=1,
+            output_dtype="uint8", **SERVE_A)
+        require(tuple(out.shape) == (1, 1024, 1024, 3) and out.dtype == torch.uint8,
+                f"request {label} output {tuple(out.shape)} {out.dtype}")
+        require(min(launches[label][k] for k in ("conv3x3", "attention")) > 0, str(launches))
+        if label == "A":
+            # (B) stage 1 alone, ancestral loop cut to 8 steps, batch 2
+            cfg_b = dataclasses.replace(
+                cfg, stages=(dataclasses.replace(cfg.stage(1), timesteps=8),) + cfg.stages[1:])
+            out_b, _, launches["B"], _, _ = serve_request(
+                "B", Cascade(cfg_b, device="cuda"), params, gen, ((1, 8),), batch_size=2,
+                stop_at_unet_number=1)
+            require(tuple(out_b.shape) == (2, 64, 64, 3) and torch.isfinite(out_b).all().item(),
+                    f"request B output {tuple(out_b.shape)}")
+            require(0.0 <= out_b.min().item() and out_b.max().item() <= 1.0, "request B range")
+    require(launches["C"]["conv3x3_int8"] > 0, str(launches["C"]))
+    for n, steps in FORWARDS_A:
+        fa, fc = stages["A"][n], stages["C"][n]
+        log(f"[serve] stage {n} ({steps} steps): A {fa[2]:.2f} ms/step (forward {fa[1]:.2f} ms), "
+            f"C {fc[2]:.2f} ms/step (forward {fc[1]:.2f} ms) [CUDA events]")
+    # device busy time of each request, from a second, profiled run
+    for label in ("A", "C"):
+        c = cascades[label]
+        busy = device_busy_s(lambda: c.sample(params, gen, batch_size=1, output_dtype="uint8",
+                                              **SERVE_A))
+        log(f"[serve] {label}: wall {walls[label]:.3f} s, device busy {busy:.3f} s "
+            f"(profiled rerun), idle share {max(0.0, 1 - busy / walls[label]):.3f}, "
+            f"peak {peaks[label]:.2f} GiB")
     log(f"[serve] {time.perf_counter() - t0:.1f} s")
     return launches
 
@@ -368,7 +710,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also profile request A stage by stage (torch.profiler)")
+                    help="also profile requests A and C stage by stage (torch.profiler)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -376,9 +718,14 @@ def main() -> None:
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rows = phase_kernels(gen)
+    probe_rows = phase_probe()
 
     t0 = time.perf_counter()
-    cascade = Cascade(ultra_res(0, "v_param"), device="cuda")
+    flagship = ultra_res(0, "v_param")
+    cascades = {"A": Cascade(flagship, device="cuda"),
+                "C": Cascade(serving_overrides(flagship, quant="int8", storage="float8_e4m3fn"),
+                             device="cuda")}
+    cascade = cascades["A"]
     params = [cascade.init_stage_params(n, gen) for n in (1, 2, 3)]
     for ps in params:
         # Flax zero-initialises the final conv, which would make every U-Net
@@ -393,20 +740,26 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
     phase_forward(cascade, params[0], gen)
-    launches = phase_serve(cascade, params, gen)
+    phase_quant_forward(cascades["C"], params[2], gen)
+    launches = phase_serve(cascades, params, gen)
     if args.profile:
-        phase_profile(cascade, params, gen)
+        phase_profile(cascades, params, gen)
 
     kernels = []
-    for kname, source, replaces in (("conv3x3", CONV_SOURCE, CONV_REPLACES),
-                                    ("attention", ATTN_SOURCE, ATTN_REPLACES)):
+    for kname, source, replaces, path in (
+            ("conv3x3", CONV_SOURCE, CONV_REPLACES, "A"),
+            ("conv3x3_int8", CONV_SOURCE, CONV_INT8_REPLACES, "C"),
+            ("attention", ATTN_SOURCE, ATTN_REPLACES, "A")):
         cases = rows[kname]
         head = cases[0]  # the first case is the main path's heaviest shape
         kernels.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
-            launches=launches[kname], max_abs_err=max(c["max_abs_err"] for c in cases),
+            launches=launches[path][kname], max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
-            bound_by=head["bound_by"], library_ms=head["library_ms"], cases=cases))
+            bound_by=head["bound_by"], library_ms=head["library_ms"],
+            launches_by_request={k: v[kname] for k, v in launches.items()}, cases=cases))
+    for variant, row in probe_rows.items():
+        kernels.append(dict(route="cuda", source=PROBE_SOURCE, replaces=PROBE_REPLACES, **row))
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

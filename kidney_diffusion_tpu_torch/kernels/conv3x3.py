@@ -1,7 +1,7 @@
 """Fused 3x3 SAME convolution over NHWC: CUDA kernel, plain version, wrapper.
 
 Port of `kidney_diffusion_tpu/kernels/conv3x3.py`. The function is
-`y = conv3x3(pro(x)) + b` with fp32 accumulation, where the optional
+`y = conv3x3(pro(x)) + b` with exact accumulation, where the optional
 prologue `pro` (B, 2, Cin) = [a; c] is silu(x * a + c) applied before the
 taps with the SAME padding zeros after it, and the optional stats are
 (B, 2, Cout) = [sum(y), centered sumsq Q] computed from the PRE-bias output
@@ -13,16 +13,32 @@ then be the same for all chunks of an image (`gn_film_affine(chunks=...)`
 makes it so): the kernel applies a chunk's own affine to the halo row it
 reads from its neighbour, the plain version the neighbour's.
 
+Options of the serving path (`xla_conv3x3` `:299-373`):
+
+- `quant=True`: the w8a8 int8 conv of `_int8_conv`. The prologue'd input,
+  rounded to its dtype, is quantized per tensor with s_a = max(a_max, 1e-8)
+  / 127, where `a_max` is a given bound on its amax or, without one, its
+  amax reduced in its own dtype; the weights per output channel; both as
+  clip(round_half_even(v / s), -127, 127). Products sum exactly in int32
+  and dequantize as float32(acc) * (s_a * s_w) before the bias.
+- `want_range=True`: also return the post-bias per-channel [max, min]
+  (B[*chunks], 2, Cout); with stats from the fp32 output plus the bias,
+  without stats from the output in its dtype (JAX's two definitions).
+- `bias_in_dtype=True`: out = dtype(dtype(z) + dtype(b)), the two roundings
+  of `flax.linen.Conv(dtype)`, which the JAX U-Net uses for its unchunked
+  init conv.
+
+Returns `out`, `(out, stats)`, `(out, ranges)` or `(out, stats, ranges)`.
+
 `conv3x3` runs the plain version for a tensor on the CPU and the CUDA
-kernel (`csrc/conv3x3.cu`) for a tensor on the card; there is no fallback
-from one to the other. The int8 and range-epilogue options of the JAX
-module belong to the quantised serving slice and are not ported yet.
+kernel (`csrc/conv3x3.cu`, bf16 or int8 mode) for a tensor on the card;
+there is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,9 +46,11 @@ import torch.nn.functional as F
 from . import _build
 
 Tensor = torch.Tensor
+QuantWeights = Tuple[Tensor, Tensor]  # (int8 (3, 3, Cin, Cout), fp32 (Cout,) scale)
 
-# launches of the CUDA kernel since the count was last set to 0
+# launches of the CUDA kernel since the count was last set to 0, by mode
 LAUNCHES = 0
+LAUNCHES_INT8 = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -69,28 +87,75 @@ def finish_stats(s1z: Tensor, s2z: Tensor, npix: int, b: Optional[Tensor]) -> Te
     return torch.stack([s1, q], dim=1)
 
 
+def quantize_weights(w: Tensor) -> QuantWeights:
+    """Symmetric per-output-channel int8 weights of `_int8_conv`: s_w =
+    max(max|w|, 1e-8) / 127 over (kh, kw, Cin), w_q = clip(round(w / s_w))."""
+    wf = w.float()
+    s_w = torch.clamp(wf.abs().amax(dim=(0, 1, 2)), min=1e-8) / 127.0
+    wq = torch.clamp(torch.round(wf / s_w), -127, 127).to(torch.int8)
+    return wq, s_w
+
+
+def activation_scale(x: Tensor, a_max: Optional[Tensor]) -> Tensor:
+    """The per-tensor int8 scale (fp32 scalar) of the conv input `x` (after
+    its prologue): from the bound `a_max`, else from x's amax in its dtype."""
+    amax = a_max if a_max is not None else x.abs().amax()
+    return torch.clamp(amax.float(), min=1e-8) / 127.0
+
+
+def _finish(out: Tensor, stats, ranges):
+    if stats is None and ranges is None:
+        return out
+    return tuple(t for t in (out, stats, ranges) if t is not None)
+
+
 def conv3x3_plain(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
                   pro: Optional[Tensor] = None, want_stats: bool = False,
-                  chunks: int = 0):
-    """Plain PyTorch version (`xla_conv3x3` without quant / range). Operands
-    are rounded to x's dtype and multiplied in fp32, so products are exact
-    and the sum is fp32, as `preferred_element_type=float32` does."""
+                  chunks: int = 0, quant: bool = False, a_max: Optional[Tensor] = None,
+                  want_range: bool = False, bias_in_dtype: bool = False,
+                  w_q: Optional[QuantWeights] = None):
+    """Plain PyTorch version (`xla_conv3x3`). bf16 operands are multiplied in
+    fp32, so products are exact and the sum is fp32, as
+    `preferred_element_type=float32` does; int8 operands are convolved in
+    float64, where every product and every partial sum (< 2^31) is an exact
+    integer, so the sum is the exact int32 one."""
+    if quant and bias_in_dtype:
+        raise ValueError("bias_in_dtype is the plain conv's rounding; not with quant")
     if pro is not None:
         x = apply_prologue(x, pro)
-    wk = w.to(x.dtype).float().permute(3, 2, 0, 1)  # HWIO -> OIHW
-    xin = x.float()
+    padding = (0, 1) if chunks else (1, 1)
+    if quant:
+        s_a = activation_scale(x, a_max)
+        wq, s_w = w_q if w_q is not None else quantize_weights(w)
+        xin = torch.clamp(torch.round(x.float() / s_a), -127, 127).double()
+        wk = wq.double().permute(3, 2, 0, 1)  # HWIO -> OIHW
+    else:
+        xin = x.float()
+        wk = w.to(x.dtype).float().permute(3, 2, 0, 1)
     if chunks:
         xin = halo_pad(xin, chunks)
-        padding = (0, 1)
-    else:
-        padding = (1, 1)
     z = F.conv2d(xin.permute(0, 3, 1, 2), wk, padding=padding).permute(0, 2, 3, 1)
-    y = z + b.float()[None, None, None, :] if b is not None else z
-    out = y.to(x.dtype)
-    if not want_stats:
-        return out
-    npix = z.shape[1] * z.shape[2]
-    return out, finish_stats(z.sum(dim=(1, 2)), (z * z).sum(dim=(1, 2)), npix, b)
+    if quant:  # int -> fp32 (round to nearest even), then the scale product
+        z = z.float() * (s_a * s_w)
+    y = z + b.float() if b is not None else z
+    if bias_in_dtype:
+        out = z.to(x.dtype) + b.to(x.dtype) if b is not None else z.to(x.dtype)
+    else:
+        out = y.to(x.dtype)
+    ranges = None
+    if want_range:
+        if want_stats:  # + b is monotone, so max(z) + b == max(z + b) exactly
+            rmax, rmin = z.amax(dim=(1, 2)), z.amin(dim=(1, 2))
+            if b is not None:
+                rmax, rmin = rmax + b.float(), rmin + b.float()
+        else:
+            rmax, rmin = out.amax(dim=(1, 2)).float(), out.amin(dim=(1, 2)).float()
+        ranges = torch.stack([rmax, rmin], dim=1)
+    stats = None
+    if want_stats:
+        npix = z.shape[1] * z.shape[2]
+        stats = finish_stats(z.sum(dim=(1, 2)), (z * z).sum(dim=(1, 2)), npix, b)
+    return _finish(out, stats, ranges)
 
 
 def tile_w(width: int) -> int:
@@ -101,19 +166,22 @@ def tile_w(width: int) -> int:
 
 def _lib():
     lib = _build.library("conv3x3")
-    fn = lib.kdt_conv3x3
-    if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
-        fn.restype = _I
+    if lib.kdt_conv3x3.argtypes is None:
+        lib.kdt_conv3x3.argtypes = [_P] * 7 + [_I] * 9 + [_P]
+        lib.kdt_conv3x3.restype = _I
+        lib.kdt_conv3x3_int8.argtypes = [_P] * 9 + [_I] * 8 + [_P]
+        lib.kdt_conv3x3_int8.restype = _I
     return lib
 
 
 def conv3x3_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
                  pro: Optional[Tensor] = None, want_stats: bool = False,
-                 chunks: int = 0):
-    """Launch the CUDA kernel. bf16 activations and weights, fp32 bias,
-    prologue and stats; raises on anything else."""
-    global LAUNCHES
+                 chunks: int = 0, quant: bool = False, a_max: Optional[Tensor] = None,
+                 want_range: bool = False, bias_in_dtype: bool = False,
+                 w_q: Optional[QuantWeights] = None):
+    """Launch the CUDA kernel. bf16 activations and weights (or `w_q`), fp32
+    bias, prologue, stats and ranges; raises on anything else."""
+    global LAUNCHES, LAUNCHES_INT8
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3):
         raise ValueError(f"conv3x3 wants NHWC x and (3, 3, Cin, Cout) w, got {x.shape}, {w.shape}")
     nb, h, wd, cin = x.shape
@@ -126,11 +194,12 @@ def conv3x3_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
         raise ValueError(f"batch {nb} is not a multiple of chunks={chunks}")
     if nb > 65535 or cout > 64 * 65535:
         raise ValueError(f"batch {nb} or Cout {cout} exceeds the kernel's grid")
+    if quant and bias_in_dtype:
+        raise ValueError("bias_in_dtype is the plain conv's rounding; not with quant")
     dev = x.device
     if w.device != dev:
         raise ValueError(f"weights on {w.device}, activations on {dev}")
     x = _build.aligned(x)
-    w = _build.aligned(w.to(torch.bfloat16))
     bias = b.to(device=dev, dtype=torch.float32).contiguous() if b is not None else None
     if pro is not None:
         if tuple(pro.shape) != (nb, 2, cin):
@@ -139,33 +208,63 @@ def conv3x3_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
     tw = tile_w(wd)
     n_tiles = -(-wd // tw) * -(-h // (64 // tw))
     y = torch.empty((nb, h, wd, cout), dtype=torch.bfloat16, device=dev)
-    partial = (torch.empty((nb, n_tiles, 2, cout), dtype=torch.float32, device=dev)
-               if want_stats else None)
+    slots = lambda: torch.empty((nb, n_tiles, 2, cout), dtype=torch.float32, device=dev)  # noqa: E731
+    partial = slots() if want_stats else None
+    prange = slots() if want_range else None
+    range_mode = (1 if want_stats else 2) if want_range else 0
     lib = _lib()
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    rc = lib.kdt_conv3x3(
-        ptr(x), ptr(w), ptr(bias), ptr(pro), ptr(y), ptr(partial),
-        nb, h, wd, cin, cout, int(chunks), tw,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(lib, rc, "conv3x3")
-    LAUNCHES += 1
-    if not want_stats:
-        return y
-    s = partial.sum(dim=1)  # per-tile slots, summed in a fixed order
-    return y, finish_stats(s[:, 0], s[:, 1], h * wd, b)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if quant:
+        # the scale of the prologue'd input; without a bound, its amax needs
+        # the prologue'd tensor (only the dynamic-amax escape hatch gets here)
+        xs = apply_prologue(x, pro) if (pro is not None and a_max is None) else x
+        s_a = activation_scale(xs, None if a_max is None else a_max.to(dev)).reshape(1)
+        wq, s_w = w_q if w_q is not None else quantize_weights(w)
+        if wq.dtype != torch.int8 or tuple(wq.shape) != tuple(w.shape) or wq.device != dev:
+            raise ValueError(f"w_q must be int8 {tuple(w.shape)} on {dev}")
+        sasw = (s_a * s_w.to(dev)).contiguous()
+        wq = _build.aligned(wq)
+        rc = lib.kdt_conv3x3_int8(
+            ptr(x), ptr(wq), ptr(s_a), ptr(sasw), ptr(bias), ptr(pro), ptr(y), ptr(partial),
+            ptr(prange), nb, h, wd, cin, cout, int(chunks), tw, range_mode, stream)
+        _build.check(lib, rc, "conv3x3 int8")
+        LAUNCHES_INT8 += 1
+    else:
+        wb = _build.aligned(w.to(torch.bfloat16))
+        rc = lib.kdt_conv3x3(
+            ptr(x), ptr(wb), ptr(bias), ptr(pro), ptr(y), ptr(partial), ptr(prange),
+            nb, h, wd, cin, cout, int(chunks), tw, range_mode, int(bias_in_dtype), stream)
+        _build.check(lib, rc, "conv3x3")
+        LAUNCHES += 1
+    stats = ranges = None
+    if want_stats:
+        s = partial.sum(dim=1)  # per-tile slots, summed in a fixed order
+        stats = finish_stats(s[:, 0], s[:, 1], h * wd, b)
+    if want_range:
+        rmax, rmin = prange[:, :, 0].amax(dim=1), prange[:, :, 1].amin(dim=1)
+        if want_stats and bias is not None:
+            rmax, rmin = rmax + bias, rmin + bias
+        ranges = torch.stack([rmax, rmin], dim=1)
+    return _finish(y, stats, ranges)
 
 
 def conv3x3(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
             pro: Optional[Tensor] = None, want_stats: bool = False,
-            chunks: int = 0):
-    """3x3 SAME conv over NHWC with optional fused silu-affine prologue and
-    [sum, centered sumsq] stats epilogue (see the module docstring).
+            chunks: int = 0, quant: bool = False, a_max: Optional[Tensor] = None,
+            want_range: bool = False, bias_in_dtype: bool = False,
+            w_q: Optional[QuantWeights] = None):
+    """3x3 SAME conv over NHWC with optional fused silu-affine prologue,
+    [sum, centered sumsq] stats and [max, min] range epilogues, and the w8a8
+    int8 mode (see the module docstring). `w_q` is `quantize_weights(w)`,
+    made once by a caller that reuses the weights.
 
     A tensor on the CPU runs the plain version; a tensor on the card runs
     the CUDA kernel or raises."""
+    kw = dict(pro=pro, want_stats=want_stats, chunks=chunks, quant=quant, a_max=a_max,
+              want_range=want_range, bias_in_dtype=bias_in_dtype, w_q=w_q)
     if x.device.type == "cpu":
-        return conv3x3_plain(x, w, b, pro=pro, want_stats=want_stats, chunks=chunks)
+        return conv3x3_plain(x, w, b, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3 runs on the CPU or a CUDA device, not {x.device}")
-    return conv3x3_cuda(x, w, b, pro=pro, want_stats=want_stats, chunks=chunks)
+    return conv3x3_cuda(x, w, b, **kw)

@@ -8,13 +8,20 @@ its compute dtype as the Flax module does, so a module whose parameters
 were cast to bf16 for sampling computes what the JAX package computes.
 
 Every 3x3 conv goes through `kernels.conv3x3.conv3x3` and every attention
-through `kernels.attention.attention`. The quantisation range helpers of
-the JAX module (`:177-226`) belong to the int8 serving slice.
+through `kernels.attention.attention`.
+
+The w8a8 serving path (`quant=True` on `Conv3x3`, `Upsample`, `Block`,
+`ResnetBlock`) runs the int8 mode of the conv at the sites `_quant_site`
+admits and, while `ranges_enabled()`, threads a bound on each activation's
+amax beside it (`:42-54`, `:177-227`), so a conv's int8 scale is a
+precomputed scalar: the modules then return `(out, amax)` pairs as the Flax
+ones do.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -22,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.attention import attention
-from ..kernels.conv3x3 import conv3x3
+from ..kernels.conv3x3 import conv3x3, quantize_weights
 
 Tensor = torch.Tensor
 
@@ -118,18 +125,74 @@ class SinusoidalPosEmb(nn.Module):
         return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
+def _quant_site(shape, cout: int, chunks: int) -> bool:
+    """Does this conv site run the w8a8 int8 path? Gated by the FULL image
+    extent (rows * W * chunks) and by both channel widths, with the JAX
+    package's defaults and environment variables (`KDT_QUANT_MIN_PIX`, 64²;
+    `KDT_QUANT_MIN_CH`, 32)."""
+    min_pix = int(os.environ.get("KDT_QUANT_MIN_PIX", 64 * 64))
+    min_ch = int(os.environ.get("KDT_QUANT_MIN_CH", 32))
+    _, h, w, cin = shape
+    return h * w * max(chunks, 1) >= min_pix and cin >= min_ch and cout >= min_ch
+
+
+def ranges_enabled() -> bool:
+    """Range-propagated int8 scales (default); `KDT_QUANT_RANGES=0` falls
+    back to a dynamic amax at every int8 conv."""
+    return os.environ.get("KDT_QUANT_RANGES", "1") != "0"
+
+
+# |silu| on (-inf, 0] is bounded by |silu(-1.2785)| = 0.2785, so the max of
+# |silu| over z <= zhi is max(silu(zhi), 0.2785)
+_SILU_NEG_BOUND = 0.2785
+# ranges are reduced in fp32 but bound tensors that round through bf16 (some
+# twice): inflate every produced bound past two bf16 half-ulps
+_ROUND = 1.0 + 2.0**-7
+
+
+def amax_from_ranges(ranges: Tensor) -> Tensor:
+    """Per-tensor amax bound (fp32 scalar) from a conv range epilogue's
+    per-channel [max, min] (B[*chunks], 2, C)."""
+    return _ROUND * torch.maximum(ranges[:, 0].abs(), ranges[:, 1].abs()).amax().float()
+
+
+def silu_affine_amax(affine: Tensor, ranges: Tensor) -> Tensor:
+    """Bound (fp32 scalar) on max|silu(a*y + c)| from the affine (B[*chunks],
+    2, C) and y's per-channel [max, min]: the range of the deferred
+    GroupNorm+FiLM+SiLU activation the next conv consumes."""
+    a, c = affine[:, 0], affine[:, 1]
+    zhi = torch.maximum(a * ranges[:, 0], a * ranges[:, 1]) + c
+    return _ROUND * torch.clamp(F.silu(zhi).amax(), min=_SILU_NEG_BOUND).float()
+
+
+def dynamic_amax(x: Tensor) -> Tensor:
+    """Per-tensor amax (fp32 scalar), reduced in the input's dtype: the exact
+    max|x| of a tensor whose producer has no range epilogue (a re-anchor
+    point). A NaN propagates, as in `jnp.max`."""
+    if x.dtype == torch.float8_e4m3fn:
+        # sign-magnitude: |x| orders as the low 7 bits, with NaN (0x7f) on top
+        m = (x.view(torch.uint8) & 0x7F).amax().reshape(1)
+        return m.view(torch.float8_e4m3fn).float().reshape(())
+    return x.abs().amax().float()
+
+
 class Conv3x3(nn.Module):
     """3x3 SAME conv through the fused kernel (`kernels.conv3x3`), with its
-    silu-affine prologue and GroupNorm-stats epilogue. `chunks > 0`: the
-    input is row-chunked and the conv exchanges halo rows."""
+    silu-affine prologue, GroupNorm-stats and range epilogues. `chunks > 0`:
+    the input is row-chunked and the conv exchanges halo rows. `quant=True`
+    runs the int8 mode where `_quant_site` admits the input's shape, with
+    the weights quantized once per weight tensor; `a_max` bounds the
+    (post-prologue) input's amax."""
 
     def __init__(self, features_in: int, features: int, dtype=torch.bfloat16,
-                 zero_init: bool = False):
+                 zero_init: bool = False, quant: bool = False):
         super().__init__()
         self.dtype = dtype
         self.zero_init = zero_init
+        self.quant = quant
         self.kernel = nn.Parameter(torch.empty(3, 3, features_in, features))
         self.bias = nn.Parameter(torch.empty(features))
+        self._w_q = (None, None)  # (key of the weights it was made from, w_q)
 
     def init_params(self, generator=None) -> None:
         if self.zero_init:
@@ -138,10 +201,28 @@ class Conv3x3(nn.Module):
             lecun_normal_(self.kernel.data, 9 * self.kernel.shape[2], generator)
         self.bias.data.zero_()
 
+    def quantized_weights(self, w: Tensor):
+        """`quantize_weights(w)` for this module's current weights, made once
+        and reused while the parameter is unchanged."""
+        key = (self.kernel.data_ptr(), self.kernel._version, w.dtype, w.device)
+        if self._w_q[0] != key:
+            self._w_q = (key, quantize_weights(w))
+        return self._w_q[1]
+
     def forward(self, x: Tensor, pro: Optional[Tensor] = None, want_stats: bool = False,
-                chunks: int = 0):
-        return conv3x3(x.to(self.dtype), self.kernel.to(self.dtype), self.bias,
-                       pro=pro, want_stats=want_stats, chunks=chunks)
+                chunks: int = 0, a_max: Optional[Tensor] = None, want_range: bool = False,
+                bias_in_dtype: bool = False):
+        """`bias_in_dtype=True` computes what `flax.linen.Conv(dtype)` does
+        (output rounded, then the bias added in the compute dtype) and is
+        never quantized: the JAX U-Net's unchunked init conv."""
+        x = x.to(self.dtype)
+        w = self.kernel.to(self.dtype)
+        quant = (self.quant and not bias_in_dtype
+                 and _quant_site(x.shape, w.shape[-1], chunks))
+        return conv3x3(x, w, self.bias, pro=pro, want_stats=want_stats, chunks=chunks,
+                       quant=quant, a_max=a_max, want_range=want_range,
+                       bias_in_dtype=bias_in_dtype,
+                       w_q=self.quantized_weights(w) if quant else None)
 
 
 def FinalConv(features_in: int, features: int, dtype=torch.bfloat16):
@@ -225,40 +306,58 @@ class Downsample(nn.Module):
 
 class Upsample(nn.Module):
     """2x upsample: nearest neighbour + 3x3 conv (`blocks.py:283`). Row
-    chunks upsample chunk-locally and convolve with halo exchange."""
+    chunks upsample chunk-locally and convolve with halo exchange. While
+    ranges are tracked (quant) it takes the input's amax bound, which
+    nearest neighbour keeps, and returns (out, amax) from the conv's range."""
 
-    def __init__(self, dim_in: int, dim_out: int, dtype=torch.bfloat16):
+    def __init__(self, dim_in: int, dim_out: int, dtype=torch.bfloat16, quant: bool = False):
         super().__init__()
-        self.proj = Conv3x3(dim_in, dim_out, dtype)
+        self.quant = quant
+        self.proj = Conv3x3(dim_in, dim_out, dtype, quant=quant)
 
-    def forward(self, x: Tensor, chunks: int = 0) -> Tensor:
+    def forward(self, x: Tensor, chunks: int = 0, a_max: Optional[Tensor] = None):
         b, h, w, c = x.shape
         x = x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, h * 2, w * 2, c)
-        return self.proj(x, chunks=chunks)
+        if not (self.quant and ranges_enabled()):
+            return self.proj(x, chunks=chunks)
+        out, ranges = self.proj(x, chunks=chunks, a_max=a_max, want_range=True)
+        return out, amax_from_ranges(ranges)
 
 
 class Block(nn.Module):
     """3x3 conv -> GroupNorm -> (FiLM) -> SiLU, the GroupNorm from the conv's
     stats epilogue. `defer=True` returns (y, affine) so the caller can fold
     the affine into the next conv's prologue; `pro` is such an affine for
-    this block's conv input."""
+    this block's conv input. While ranges are tracked (quant), `a_max`
+    bounds this conv's post-prologue input and the return value gains the
+    bound on this block's activation output: (y, affine, amax) or
+    (out, amax)."""
 
-    def __init__(self, dim_in: int, dim_out: int, groups: int = 8, dtype=torch.bfloat16):
+    def __init__(self, dim_in: int, dim_out: int, groups: int = 8, dtype=torch.bfloat16,
+                 quant: bool = False):
         super().__init__()
         self.groups = groups
-        self.conv = Conv3x3(dim_in, dim_out, dtype)
+        self.quant = quant
+        self.conv = Conv3x3(dim_in, dim_out, dtype, quant=quant)
         self.norm = GroupNormParams(dim_out)
 
     def forward(self, x: Tensor, scale_shift=None, *, pro: Optional[Tensor] = None,
-                defer: bool = False, chunks: int = 0):
-        y, stats = self.conv(x, pro=pro, want_stats=True, chunks=chunks)
+                defer: bool = False, chunks: int = 0, a_max: Optional[Tensor] = None):
+        track = self.quant and ranges_enabled()
+        if track:
+            y, stats, ranges = self.conv(x, pro=pro, want_stats=True, chunks=chunks,
+                                         a_max=a_max, want_range=True)
+        else:
+            y, stats = self.conv(x, pro=pro, want_stats=True, chunks=chunks)
         affine = gn_film_affine(stats, y.shape[1] * y.shape[2], self.norm.scale,
                                 self.norm.bias, scale_shift, self.groups, chunks=chunks)
+        out_amax = silu_affine_amax(affine, ranges) if track else None
         if defer:
-            return y, affine
+            return (y, affine, out_amax) if track else (y, affine)
         a = affine[:, 0][:, None, None, :]
         c = affine[:, 1][:, None, None, :]
-        return F.silu(y.float() * a + c).to(y.dtype)
+        out = F.silu(y.float() * a + c).to(y.dtype)
+        return (out, out_amax) if track else out
 
 
 class ResnetBlock(nn.Module):
@@ -266,28 +365,45 @@ class ResnetBlock(nn.Module):
     block1's GroupNorm+FiLM+SiLU is deferred into block2's conv prologue."""
 
     def __init__(self, dim_in: int, dim_out: int, time_dim: Optional[int],
-                 groups: int = 8, dtype=torch.bfloat16):
+                 groups: int = 8, dtype=torch.bfloat16, quant: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.quant = quant
         if time_dim is not None:
             self.time_proj = Dense(time_dim, dim_out * 2, dtype=torch.float32)
-        self.block1 = Block(dim_in, dim_out, groups, dtype)
-        self.block2 = Block(dim_out, dim_out, groups, dtype)
+        self.block1 = Block(dim_in, dim_out, groups, dtype, quant)
+        self.block2 = Block(dim_out, dim_out, groups, dtype, quant)
         if dim_in != dim_out:
             self.res_proj = PlainConv(dim_in, dim_out, 1, dtype)
 
     def forward(self, x: Tensor, time_emb: Optional[Tensor] = None,
-                chunks: int = 0) -> Tensor:
-        """`time_emb` is per image, also when `x` is row-chunked."""
-        x = x.to(self.dtype)
+                chunks: int = 0, a_max: Optional[Tensor] = None):
+        """`time_emb` is per image, also when `x` is row-chunked. While ranges
+        are tracked (quant) returns (out, amax): block1's scale comes from
+        `a_max` (a dynamic amax of `x` without one), block2's from block1's
+        silu-affine range, and the residual add bounds subadditively."""
+        track = self.quant and ranges_enabled()
+        x = x.to(self.dtype)  # inputs may arrive in the storage dtype
         scale_shift = None
         if time_emb is not None:
             emb = self.time_proj(F.silu(time_emb.float()))
             scale_shift = torch.chunk(emb, 2, dim=-1)
-        y1, pro1 = self.block1(x, scale_shift, defer=True, chunks=chunks)
-        h = self.block2(y1, pro=pro1, chunks=chunks)
-        res = self.res_proj(x) if hasattr(self, "res_proj") else x
-        return h + res
+        if track:
+            if a_max is None:
+                a_max = dynamic_amax(x)
+            y1, pro1, a1 = self.block1(x, scale_shift, defer=True, chunks=chunks, a_max=a_max)
+            h, ah = self.block2(y1, pro=pro1, chunks=chunks, a_max=a1)
+        else:
+            y1, pro1 = self.block1(x, scale_shift, defer=True, chunks=chunks)
+            h = self.block2(y1, pro=pro1, chunks=chunks)
+        if hasattr(self, "res_proj"):
+            res = self.res_proj(x)
+            ares = dynamic_amax(res) if track else None
+        else:
+            res, ares = x, a_max
+        if not track:
+            return h + res
+        return h + res, _ROUND * (ah + ares)
 
 
 def _heads(t: Tensor, b: int, n: int, heads: int, dim_head: int) -> Tensor:

@@ -26,9 +26,11 @@ def per_level(value, num_levels: int) -> Tuple:
 class UNetConfig:
     """Static U-Net configuration (`kidney_diffusion_tpu/models/unet.py:61`).
 
-    `quant_conv` and `storage_dtype` are serving options of a later slice:
-    `EfficientUNet` refuses them. `remat` only trades memory in training
-    and does not change the forward function."""
+    `quant_conv="int8"` runs the w8a8 int8 conv at the sites
+    `models.blocks._quant_site` admits; `storage_dtype` (e.g.
+    "float8_e4m3fn") stores block-boundary feature maps narrow while compute
+    stays in `dtype` (`serving_overrides`). `remat` only trades memory in
+    training and does not change the forward function."""
 
     dim: int = 128
     dim_mults: Tuple[int, ...] = (1, 2, 4, 8)
@@ -258,6 +260,25 @@ def get_cascade(name: str, **kwargs) -> CascadeConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown cascade {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name](**kwargs)
+
+
+def serving_overrides(config: CascadeConfig, *, quant: Optional[str] = None,
+                      storage: Optional[str] = None,
+                      min_image_size: int = 512) -> CascadeConfig:
+    """Serving-time overrides (`kidney_diffusion_tpu/models/configs.py:308`):
+    the w8a8 int8 conv path (`quant="int8"`) and/or narrow activation
+    storage (`storage="float8_e4m3fn"`) on every stage at or above
+    `min_image_size`. Checkpoints are unchanged: weights quantize from the
+    bf16 parameters at run time."""
+    if not quant and not storage:
+        return config
+    stages = tuple(
+        dataclasses.replace(
+            st, unet=dataclasses.replace(st.unet, quant_conv=quant, storage_dtype=storage))
+        if st.image_size >= min_image_size else st
+        for st in config.stages
+    )
+    return dataclasses.replace(config, stages=stages)
 
 
 def tiny_test_cascade(

@@ -5,8 +5,12 @@ time tokens, text tokens with learned CFG null tokens, `cond_images`,
 low-res conditioning with its noise-level embedding, `memory_efficient`
 downsampling at each level's entry, the init -> final conv residual, and the
 batch-of-row-chunks layout (`spatial_chunks`, applied only when
-H % (chunks * 2**levels) == 0). Submodule and parameter names are the Flax
-ones, so `state_dict()` keys are the Flax parameter paths joined by dots.
+H % (chunks * 2**levels) == 0), and the serving options `quant_conv="int8"`
+(w8a8 convs at the `_quant_site` sites, with range-propagated activation
+scales) and `storage_dtype` (block-boundary feature maps and skips stored
+narrow, cast exactly where the JAX forward casts). Submodule and parameter
+names are the Flax ones, so `state_dict()` keys are the Flax parameter
+paths joined by dots.
 
 Flax infers input widths at call time; a torch module needs them when it is
 built, so `EfficientUNet.__init__` walks the same level structure as the
@@ -31,10 +35,33 @@ from .blocks import (
     SinusoidalPosEmb,
     TransformerBlock,
     Upsample,
+    amax_from_ranges,
+    dynamic_amax,
+    ranges_enabled,
 )
 from .configs import UNetConfig, per_level
 
 Tensor = torch.Tensor
+
+
+# float8_e4m3fn has no infinity: JAX (ml_dtypes) turns a value that rounds
+# past its largest finite value, 448, into NaN; torch saturates to 448. The
+# rounding midpoint between 448 and the next step, 480, is 464 (a tie goes
+# to 448, the even one).
+_E4M3_NAN_ABOVE = 464.0
+
+
+def cast_storage(x: Tensor, dtype: torch.dtype) -> Tensor:
+    """`x.astype(dtype)` as JAX does it: for float8_e4m3fn, |x| > 464, inf and
+    NaN become NaN instead of torch's saturated +-448; below that both round
+    to nearest even. Other dtypes cast as torch casts."""
+    if x.dtype == dtype:
+        return x
+    if dtype == torch.float8_e4m3fn:
+        return torch.where(x.abs() <= _E4M3_NAN_ABOVE, x, float("nan")).to(dtype)
+    if dtype.is_floating_point and dtype.itemsize == 1:
+        raise NotImplementedError(f"storage in {dtype}: only float8_e4m3fn is ported")
+    return x.to(dtype)
 
 
 def resize_nearest(x: Tensor, h: int, w: int) -> Tensor:
@@ -52,12 +79,11 @@ def resize_nearest(x: Tensor, h: int, w: int) -> Tensor:
 class EfficientUNet(nn.Module):
     def __init__(self, config: UNetConfig):
         super().__init__()
-        if config.quant_conv is not None or config.storage_dtype is not None:
-            raise NotImplementedError(
-                "quant_conv / storage_dtype serving paths are not ported yet"
-            )
+        if config.quant_conv not in (None, "int8"):
+            raise ValueError(f"quant_conv must be None or 'int8', got {config.quant_conv!r}")
         cfg = self.config = config
         dt = cfg.compute_dtype
+        qt = cfg.quant_conv == "int8"
         L = cfg.num_levels
         dims = tuple(cfg.dim * m for m in cfg.dim_mults)
         blocks_per = per_level(cfg.num_resnet_blocks, L)
@@ -67,7 +93,7 @@ class EfficientUNet(nn.Module):
         cond_dim = cfg.resolved_cond_dim
 
         def res(name, cin, cout):
-            self.add_module(name, ResnetBlock(cin, cout, tdim, cfg.groups, dt))
+            self.add_module(name, ResnetBlock(cin, cout, tdim, cfg.groups, dt, qt))
 
         def cross(name, d):
             self.add_module(name, CrossAttentionBlock(
@@ -93,7 +119,7 @@ class EfficientUNet(nn.Module):
             self.null_text_pooled = nn.Parameter(torch.empty(1, tdim))
             self.text_pool_proj = Dense(cond_dim, tdim)
 
-        self.init_conv = Conv3x3(in_ch, cfg.dim, dt)
+        self.init_conv = Conv3x3(in_ch, cfg.dim, dt, quant=qt)
         cur = cfg.dim
         skips = []
         for i in range(L):
@@ -133,7 +159,7 @@ class EfficientUNet(nn.Module):
             if cfg.memory_efficient or i > 0:
                 up_dim = ((dims[i - 1] if i > 0 else cfg.dim)
                           if cfg.memory_efficient else dims[i - 1])
-                self.add_module(f"up{i}_upsample", Upsample(d, up_dim, dt))
+                self.add_module(f"up{i}_upsample", Upsample(d, up_dim, dt, qt))
                 cur = up_dim
         assert not skips, "skip connection mismatch"
         if cfg.init_conv_to_final_conv_residual:
@@ -221,57 +247,106 @@ class EfficientUNet(nn.Module):
         def rechunked(y):
             return y.reshape(b * ch, y.shape[1] // ch, *y.shape[2:]) if ch else y
 
-        def block(name, y):
-            return getattr(self, name)(y, t_cond, chunks=ch)
+        # range propagation (w8a8 serving): `xa` bounds the amax of `x` so
+        # every int8 conv's scale is a precomputed scalar; None where no bound
+        # is known. Untracked producers (downsamples, attention) re-anchor
+        # with one reduction.
+        track = cfg.quant_conv == "int8" and ranges_enabled()
+        sdt = getattr(torch, cfg.storage_dtype) if cfg.storage_dtype else None
+        # narrow storage rounds half an ulp either way: inflate carried bounds
+        sf = 1.0 + torch.finfo(sdt).eps if sdt is not None else 1.0
+
+        def store(y, ya=None):
+            """Block-boundary storage of a feature map and its bound."""
+            if sdt is not None:
+                y = cast_storage(y, sdt)
+                ya = None if ya is None else ya * sf
+            return y, ya
+
+        def reanchor(y):
+            return dynamic_amax(y) if track else None
+
+        def block(name, y, ya):
+            if track:
+                return store(*getattr(self, name)(y, t_cond, chunks=ch, a_max=ya))
+            return store(getattr(self, name)(y, t_cond, chunks=ch))[0], None
 
         def attn_block(name, y):
-            return rechunked(getattr(self, name)(unchunked(y), context))
+            y, _ = store(rechunked(getattr(self, name)(unchunked(y), context)))
+            return y, reanchor(y)
+
+        def bound_max(a, b):
+            return torch.maximum(a, b) if a is not None and b is not None else None
 
         # ---- init conv ----------------------------------------------------------
-        x = self.init_conv(x, chunks=ch)
-        init_conv_out = x
+        xa = None
+        if ch:
+            if track:
+                x, r = self.init_conv(x, chunks=ch, want_range=True)
+                xa = amax_from_ranges(r)
+            else:
+                x = self.init_conv(x, chunks=ch)
+        else:  # `nn.Conv(dtype)` in the JAX forward: never quantized
+            x = self.init_conv(x, bias_in_dtype=True)
+            xa = reanchor(x)
+        x, xa = store(x, xa)
+        init_conv_out, init_a = x, xa
 
         # ---- down path ----------------------------------------------------------
         skips = []
         for i in range(L):
             if cfg.memory_efficient:
-                x = getattr(self, f"down{i}_pre")(x)
-            x = block(f"down{i}_block0", x)
+                x, _ = store(getattr(self, f"down{i}_pre")(x))
+                xa = reanchor(x)
+            x, xa = block(f"down{i}_block0", x, xa)
             if cross_per[i]:
-                x = attn_block(f"down{i}_cross", x)
-            skips.append(x)
+                x, xa = attn_block(f"down{i}_cross", x)
+            skips.append((x, xa))
             for j in range(blocks_per[i]):
-                x = block(f"down{i}_block{j + 1}", x)
-                skips.append(x)
+                x, xa = block(f"down{i}_block{j + 1}", x, xa)
+                skips.append((x, xa))
             if attns_per[i]:
-                x = attn_block(f"down{i}_attn", x)
+                x, xa = attn_block(f"down{i}_attn", x)
             if not cfg.memory_efficient and i < L - 1:
-                x = getattr(self, f"down{i}_post")(x)
+                x, _ = store(getattr(self, f"down{i}_post")(x))
+                xa = reanchor(x)
 
         # ---- middle -------------------------------------------------------------
-        x = block("mid_block1", x)
+        x, xa = block("mid_block1", x, xa)
         if cross_per[-1]:
-            x = attn_block("mid_cross", x)
+            x, xa = attn_block("mid_cross", x)
         if attns_per[-1]:
-            x = attn_block("mid_attn", x)
-        x = block("mid_block2", x)
+            x, xa = attn_block("mid_attn", x)
+        x, xa = block("mid_block2", x, xa)
 
         # ---- up path ------------------------------------------------------------
         for i in reversed(range(L)):
             for j in range(blocks_per[i] + 1):
-                x = block(f"up{i}_block{j}", torch.cat([x, skips.pop()], dim=-1))
+                skip, ska = skips.pop()
+                x, xa = store(x, xa)
+                xa = bound_max(xa, ska)
+                x, xa = block(f"up{i}_block{j}", torch.cat([x, skip], dim=-1), xa)
             if cross_per[i]:
-                x = attn_block(f"up{i}_cross", x)
+                x, xa = attn_block(f"up{i}_cross", x)
             if attns_per[i]:
-                x = attn_block(f"up{i}_attn", x)
+                x, xa = attn_block(f"up{i}_attn", x)
             if cfg.memory_efficient or i > 0:
-                x = getattr(self, f"up{i}_upsample")(x, chunks=ch)
+                up = getattr(self, f"up{i}_upsample")
+                if track:
+                    x, xa = store(*up(x, chunks=ch, a_max=xa))
+                else:
+                    x, _ = store(up(x, chunks=ch))
         assert not skips, "skip connection mismatch"
 
         # ---- final --------------------------------------------------------------
         if cfg.init_conv_to_final_conv_residual:
+            x, xa = store(x, xa)
+            xa = bound_max(xa, init_a)
             x = torch.cat([x, init_conv_out], dim=-1)
-        x = self.final_block(x, t_cond, chunks=ch)
+        if track:
+            x = self.final_block(x, t_cond, chunks=ch, a_max=xa)[0]
+        else:
+            x = self.final_block(x, t_cond, chunks=ch)
         return unchunked(self.final_conv(x, chunks=ch))
 
 

@@ -93,7 +93,12 @@ def test_configs_match_the_flagship():
     assert (s1.dim, s1.dim_mults, s1.num_resnet_blocks) == (256, (1, 2, 3, 4), 3)
     assert s2.memory_efficient and s2.lowres_cond and s2.dim == 128
     assert (s3.num_resnet_blocks, s3.spatial_chunks) == ((2, 4, 6, 8), 16)
-    with pytest.raises(NotImplementedError):
-        from kidney_diffusion_tpu_torch.models.unet import EfficientUNet
+    # the shipped serving overrides build: int8 + fp8 storage on stage 3 only
+    from kidney_diffusion_tpu_torch.models.unet import EfficientUNet
 
-        EfficientUNet(tcfg.UNetConfig(quant_conv="int8"))
+    served = tcfg.serving_overrides(cfg, quant="int8", storage="float8_e4m3fn")
+    assert [st.unet.storage_dtype for st in served.stages] == [None, None, "float8_e4m3fn"]
+    with torch.device("meta"):
+        EfficientUNet(served.stage(3).unet)
+    with pytest.raises(ValueError):
+        EfficientUNet(tcfg.UNetConfig(quant_conv="int4"))
