@@ -12,16 +12,23 @@ Phases, each printing its own lines and seconds:
    sm_90a, plain C interface, loaded with ctypes), all in parallel;
 3. kernels: each kernel's wrapper on card tensors at the flagship shapes,
    held against its plain PyTorch version on the same inputs with the
-   stated tolerances, and timed (CUDA events) beside the plain version and
-   one PyTorch library call as a yardstick: conv3x3 in bf16 (with its range
-   epilogue and bf16-bias rounding) and in its int8 mode, and attention;
+   stated tolerances, and timed beside the plain version and one PyTorch
+   library call as a yardstick (device time per call: the calls are
+   captured in a CUDA graph and replayed, timed by CUDA events; the
+   wrapper's eager time, host launch cost included, is printed beside it):
+   conv3x3 in bf16 on its two kernels (the wgmma kernel for the wide
+   convs, timed also on the WMMA kernel it took over from; the WMMA kernel
+   for the narrow ends and the bf16-bias rounding) with its range epilogue,
+   and in its int8 mode, and attention; `F.conv2d` is timed on NCHW and on
+   channels-last bf16, and the faster is the yardstick;
 4. probe: the int8 tap-product probe's three kernels against their plain
    versions, then its entry point (`tools.probe_int8.run`) at REPS
    back-to-back launches per variant, with bounds and one-call yardsticks;
 5. forward: a full-width stage-1 U-Net forward through the kernels on the
    card against the plain path on the CPU, same weights and inputs; then
    the full-width stage-3 U-Net with the int8 + fp8 serving overrides at
-   the 256² training crop, the same way;
+   the 256² training crop, the same way, with the spreads of its exact and
+   int8-only variants beside it;
 6. serve: the flagship `ultra_res(0, "v_param")` cascade at full width,
    weights made on the card from --seed, answers (A) one 1024² patch at the
    shipped serving mix dpmpp_steps=(25, 25, 0), ddim_steps=(0, 0, 4),
@@ -31,9 +38,10 @@ Phases, each printing its own lines and seconds:
    w8a8 int8 convs with fp8 activation storage), through `Cascade.sample`.
    Launch counts are zeroed just before each request and read just after;
    they must equal one launch per 3x3 conv (bf16 or int8 as
-   `_quant_site` gates it) and per attention layer of every U-Net forward,
-   so every such layer of the path ran its kernel. A and C are then run
-   again under torch.profiler for their device busy time;
+   `_quant_site` gates it; the bf16 ones on the kernel `conv3x3.route`
+   picks) and per attention layer of every U-Net forward, so every such
+   layer of the path ran its kernel. A and C are then run again under
+   torch.profiler for their device busy time;
 7. with `--profile` only: requests A and C again stage by stage under
    torch.profiler (device busy time, idle share, top kernels).
 
@@ -45,6 +53,7 @@ exits non-zero and prints no result; without a CUDA device it exits 2.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import re
@@ -81,6 +90,7 @@ PEAK_BYTES = 3.35e12
 BF16_ULP = 2.0**-7  # spacing of bf16 values in [1, 2)
 
 CONV_SOURCE = "kidney_diffusion_tpu_torch/kernels/csrc/conv3x3.cu"
+WIDE_SOURCE = "kidney_diffusion_tpu_torch/kernels/csrc/conv3x3_sm90.cu"
 CONV_REPLACES = "kidney_diffusion_tpu/kernels/conv3x3.py:394"
 # the int8 mode: a mode of the same kernel; on the TPU the int8 conv ran in
 # XLA (`_int8_conv`), the Pallas conv being the kernel it extends
@@ -89,6 +99,10 @@ ATTN_SOURCE = "kidney_diffusion_tpu_torch/kernels/csrc/attention.cu"
 ATTN_REPLACES = "kidney_diffusion_tpu/kernels/attention.py:68"
 PROBE_SOURCE = "kidney_diffusion_tpu_torch/kernels/csrc/probe_int8.cu"
 PROBE_REPLACES = "tools/probe_int8_pallas.py:74"
+# wgmma-kernel launches of requests A and C: the wide 3x3 convs of the three
+# U-Nets (73, 58 and 106 a forward) times each stage's forwards, less C's
+# int8 stage 3 (a cross-check of `expected_launches`)
+WIDE_LAUNCHES = {"A": 3699, "C": 3275}
 
 # name: (batch*chunks, rows, width, cin, cout, chunks, prologue, stats)
 CONV_CASES = {
@@ -97,6 +111,11 @@ CONV_CASES = {
     "c_stage1_16x16_768": (1, 16, 16, 768, 768, 0, True, True),
     "d_stage3_final_conv": (16, 64, 1024, 128, 3, 16, False, False),
     "e_stage3_skip_concat_64": (16, 4, 64, 2048, 1024, 16, True, True),
+    # what the wgmma kernel can get wrong: item boundaries of an unchunked
+    # batch must read zero rows; maps smaller than one 128-pixel tile
+    "g_unchunked_batch2_64_256": (2, 64, 64, 256, 256, 0, True, True),
+    "h_deep_4x4_1024": (2, 4, 4, 1024, 1024, 0, False, False),
+    "i_stage1_skip_concat_8x8": (2, 8, 8, 2048, 1024, 0, True, True),
 }
 # bf16 mode, serving-path options on the shapes above (+ the stage-1 init
 # conv, the unchunked call site of the bf16-bias rounding):
@@ -121,6 +140,8 @@ INT8_CASES = {
 ATTN_CASES = {
     "self_1024_plus_2": (1, 1024, 1026, 8, 64),
     "cross_4096_4": (1, 4096, 4, 8, 64),
+    "ragged_1000_2": (1, 1000, 2, 8, 64),  # Nq not a multiple of the 64-query tile
+    "head32_1024_plus_2": (1, 1024, 1026, 8, 32),
 }
 # output: normwise relative error <= 2^-8 (a bf16 rounding unit; most elements
 # round identically, a few flip by one ulp) and max abs error <= 2 bf16 ulps
@@ -167,8 +188,10 @@ def check(name: str, got, ref, tol) -> float:
     return abs_err
 
 
-def time_ms(fn, iters: int) -> float:
-    """Mean milliseconds per call, by CUDA events, after a warm-up."""
+def eager_ms(fn, iters: int) -> float:
+    """Mean milliseconds per call of `iters` back-to-back calls from the
+    host, by CUDA events, after a warm-up: the host's launch cost included
+    wherever it is longer than the device's work."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -178,6 +201,28 @@ def time_ms(fn, iters: int) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_ms(fn, iters: int) -> float:
+    """Mean device milliseconds per call: `iters` calls captured in one CUDA
+    graph after a warm-up, the graph replayed once to warm it and once
+    timed by CUDA events, so the host's launch cost is not counted."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -201,6 +246,18 @@ def check_range_of_output(name: str, out, ranges) -> None:
           and torch.equal(ranges[:, 1].bfloat16(), out.amin(dim=(1, 2))))
     log(f"  {name}: range == [max, min] of its own output: {ok}")
     require(ok, f"{name}: range epilogue disagrees with the output")
+
+
+@contextlib.contextmanager
+def wmma_only():
+    """Every bf16 conv on the WMMA kernel, the wide convs' kernel before the
+    wgmma one: a comparison inside this run, not a path of the port."""
+    routed = conv_mod.route
+    conv_mod.route = lambda *args, **kwargs: "wmma"
+    try:
+        yield
+    finally:
+        conv_mod.route = routed
 
 
 def conv_inputs(gen, nb, h, w, cin, cout, chunks, pro):
@@ -235,12 +292,13 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    seconds = _build.build(["conv3x3", "attention", "probe_int8"])
+    seconds = _build.build(["conv3x3", "conv3x3_sm90", "attention", "probe_int8"])
     for name, report in _build.PTXAS_REPORTS.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    conv_mod._lib(), attn_mod._lib(), probe_int8._lib()  # load the libraries through ctypes
+    # load the libraries through ctypes
+    conv_mod._lib(), conv_mod._lib_wide(), attn_mod._lib(), probe_int8._lib()
     log(f"[build] nvcc sm_90a -> ctypes: " + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     log(f"[build] {time.perf_counter() - t0:.1f} s")
 
@@ -251,52 +309,73 @@ def phase_kernels(gen):
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False  # the plain versions run in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = {"conv3x3": [], "conv3x3_int8": [], "attention": []}
+    # bf16 conv cases go to the row of the kernel that served them
+    rows = {"conv3x3_wide": [], "conv3x3": [], "conv3x3_int8": [], "attention": []}
+    conv_row = {"wgmma": "conv3x3_wide", "wmma": "conv3x3"}
 
     for case, (nb, h, w, cin, cout, chunks, pro, stats) in CONV_CASES.items():
         x, wk, b, p = conv_inputs(gen, nb, h, w, cin, cout, chunks, pro)
         kw = dict(pro=p, want_stats=stats, chunks=chunks)
+        kernel = conv_mod.route(cin, cout)
         got = conv_mod.conv3x3(x, wk, b, **kw)
         ref = conv_mod.conv3x3_plain(x, wk, b, **kw)
         torch.cuda.synchronize()
         got, ref = (got, ref) if stats else ((got,), (ref,))
         log(f"[kernels] conv3x3 {case}: x {tuple(x.shape)} -> {cout}, chunks={chunks}, "
-            f"prologue={pro}, stats={stats}")
+            f"prologue={pro}, stats={stats}, kernel={kernel}")
         err = check("y", got[0].float(), ref[0].float(), CONV_TOL["y"])
         if stats:
             check("stats", got[1], ref[1], CONV_TOL["stats"])
         iters = 20 if nb * h * w * cin * cout > 1e9 else 50
         ms = time_ms(lambda: conv_mod.conv3x3_cuda(x, wk, b, **kw), iters)
-        plain_ms = time_ms(lambda: conv_mod.conv3x3_plain(x, wk, b, **kw), iters)
+        row = dict(case=case, kernel=kernel, max_abs_err=err, ms=ms)
+        if kernel == "wgmma":  # its tiling, and the same call on the WMMA kernel it took over from
+            row["tile_h"], row["tile_w"], row["bn"], row["ksplit"] = conv_mod.wide_config(
+                nb, h, w, cin, cout)
+            with wmma_only():
+                row["wmma_ms"] = time_ms(lambda: conv_mod.conv3x3_cuda(x, wk, b, **kw), iters)
+        row["eager_ms"] = eager_ms(lambda: conv_mod.conv3x3_cuda(x, wk, b, **kw), iters)
+        row["plain_ms"] = time_ms(lambda: conv_mod.conv3x3_plain(x, wk, b, **kw), iters)
         full_h = h * max(chunks, 1)
         xl = x.reshape(nb // max(chunks, 1), full_h, w, cin).permute(0, 3, 1, 2).contiguous()
         wl = wk.permute(3, 2, 0, 1).contiguous()
-        lib_ms = time_ms(lambda: F.conv2d(xl, wl, b.bfloat16(), padding=1), iters)
+        xcl, wcl = (t.contiguous(memory_format=torch.channels_last) for t in (xl, wl))
+        row["library_nchw_ms"] = time_ms(lambda: F.conv2d(xl, wl, b.bfloat16(), padding=1), iters)
+        row["library_nhwc_ms"] = time_ms(lambda: F.conv2d(xcl, wcl, b.bfloat16(), padding=1),
+                                         iters)
+        row["library_ms"] = min(row["library_nchw_ms"], row["library_nhwc_ms"])
         n_ops = 2.0 * nb * h * w * 9 * cin * cout
         n_bytes = 2.0 * (x.numel() + wk.numel() + nb * h * w * cout) + 4.0 * cout
         n_bytes += 4.0 * (p.numel() if p is not None else 0) + (8.0 * nb * cout if stats else 0)
-        bms, by = bound_ms(n_bytes, n_ops)
-        log(f"  ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms(F.conv2d NCHW bf16)={lib_ms:.4f} "
-            f"bound_ms={bms:.4f} ({by}) -> {n_ops / ms / 1e9:.1f} TFLOP/s")
-        rows["conv3x3"].append(dict(case=case, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                    bound_ms=bms, bound_by=by, library_ms=lib_ms))
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops)
+        row["tflops"] = n_ops / ms / 1e9
+        log(("  tile {tile_h}x{tile_w} bn {bn} ksplit {ksplit}".format(**row)
+             if kernel == "wgmma" else "")
+            + f"  ms={ms:.4f} ({row['tflops']:.1f} TFLOP/s, {row['bound_ms'] / ms:.3f} of the "
+            f"bound) eager_ms={row['eager_ms']:.4f} "
+            + (f"wmma_ms={row['wmma_ms']:.4f} " if "wmma_ms" in row else "")
+            + f"plain_ms={row['plain_ms']:.4f} library_ms(F.conv2d bf16: NCHW "
+            f"{row['library_nchw_ms']:.4f}, channels-last {row['library_nhwc_ms']:.4f}) "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+        rows[conv_row[kernel]].append(row)
 
     for case, (nb, h, w, cin, cout, chunks, pro, stats, rng_, bid) in CONV_OPTION_CASES.items():
         x, wk, b, p = conv_inputs(gen, nb, h, w, cin, cout, chunks, pro)
         kw = dict(pro=p, want_stats=stats, chunks=chunks, want_range=rng_, bias_in_dtype=bid)
+        kernel = conv_mod.route(cin, cout, False, bid)
         got = conv_mod.conv3x3(x, wk, b, **kw)
         ref = conv_mod.conv3x3_plain(x, wk, b, **kw)
         torch.cuda.synchronize()
         got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
         log(f"[kernels] conv3x3 {case}: x {tuple(x.shape)} -> {cout}, chunks={chunks}, "
-            f"prologue={pro}, stats={stats}, range={rng_}, bias_in_dtype={bid}")
+            f"prologue={pro}, stats={stats}, range={rng_}, bias_in_dtype={bid}, kernel={kernel}")
         err = check("y", got[0].float(), ref[0].float(), CONV_TOL["y"])
         if stats:
             check("stats", got[1], ref[1], CONV_TOL["stats"])
         if rng_:
             check("range", got[-1], ref[-1], CONV_TOL["y"])
             check_range_of_output("range", got[0], got[-1])
-        rows["conv3x3"].append(dict(case=case, max_abs_err=err))
+        rows[conv_row[kernel]].append(dict(case=case, kernel=kernel, max_abs_err=err))
 
     for case, (nb, h, w, cin, cout, chunks, pro, stats, rng_, am) in INT8_CASES.items():
         x, wk, b, p = conv_inputs(gen, nb, h, w, cin, cout, chunks, pro)
@@ -326,15 +405,18 @@ def phase_kernels(gen):
             check_range_of_output("range", got[0], got[-1])
         iters = 20 if nb * h * w * cin * cout > 1e9 else 50
         ms = time_ms(lambda: conv_mod.conv3x3_cuda(x, wk, b, **kw), iters)
+        e_ms = eager_ms(lambda: conv_mod.conv3x3_cuda(x, wk, b, **kw), iters)
         plain_ms = time_ms(lambda: conv_mod.conv3x3_plain(x, wk, b, **kw), iters)
         n_ops = 2.0 * nb * h * w * 9 * cin * cout
         n_bytes = 2.0 * (x.numel() + nb * h * w * cout) + 1.0 * wk.numel() + 4.0 * cout
         n_bytes += 4.0 * (p.numel() if p is not None else 0) + 8.0 * nb * cout * (stats + rng_)
         bms, by = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS)
-        log(f"  ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=none (no int8 conv in PyTorch "
-            f"on CUDA) bound_ms={bms:.4f} ({by}) -> {n_ops / ms / 1e9:.1f} TOP/s")
-        rows["conv3x3_int8"].append(dict(case=case, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                         bound_ms=bms, bound_by=by, library_ms=None))
+        log(f"  ms={ms:.4f} ({n_ops / ms / 1e9:.1f} TOP/s) eager_ms={e_ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms=none (no int8 conv in PyTorch on CUDA) "
+            f"bound_ms={bms:.4f} ({by})")
+        rows["conv3x3_int8"].append(dict(case=case, kernel="wmma", max_abs_err=err, ms=ms,
+                                         eager_ms=e_ms, plain_ms=plain_ms, bound_ms=bms,
+                                         bound_by=by, library_ms=None))
 
     for case, (b, nq, nk, hh, d) in ATTN_CASES.items():
         q, k, v = (torch.randn((b, n, hh, d), generator=gen, device=dev).bfloat16()
@@ -345,16 +427,27 @@ def phase_kernels(gen):
         log(f"[kernels] attention {case}: q {tuple(q.shape)} k/v {tuple(k.shape)}")
         err = check("o", got.float(), ref.float(), ATTN_TOL)
         ms = time_ms(lambda: attn_mod.attention_cuda(q, k, v), 50)
+        e_ms = eager_ms(lambda: attn_mod.attention_cuda(q, k, v), 50)
         plain_ms = time_ms(lambda: attn_mod.attention_plain(q, k, v), 50)
         qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs), 50)
+        lib_eager = eager_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs), 50)
+        if case == "self_1024_plus_2":  # which kernel the yardstick is
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                F.scaled_dot_product_attention(qs, ks, vs)
+                torch.cuda.synchronize()
+            kernels, _ = kernel_times(prof)
+            log("  sdpa ran: " + "; ".join(e.key[:100] for e in kernels))
         n_ops = 4.0 * b * hh * nq * nk * d
         n_bytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
         bms, by = bound_ms(n_bytes, n_ops)
-        log(f"  ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms(sdpa)={lib_ms:.4f} "
-            f"bound_ms={bms:.4f} ({by})")
-        rows["attention"].append(dict(case=case, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                      bound_ms=bms, bound_by=by, library_ms=lib_ms))
+        log(f"  ms={ms:.4f} eager_ms={e_ms:.4f} plain_ms={plain_ms:.4f} library_ms(sdpa)="
+            f"{lib_ms:.4f} (eager {lib_eager:.4f}) bound_ms={bms:.4f} ({by})")
+        rows["attention"].append(dict(case=case, max_abs_err=err, ms=ms, eager_ms=e_ms,
+                                      plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                                      library_ms=lib_ms, library_eager_ms=lib_eager))
     log(f"[kernels] {time.perf_counter() - t0:.1f} s")
     return rows
 
@@ -389,10 +482,12 @@ def phase_probe():
 
     # one-call yardsticks of the same function: x repeated along K against
     # the taps stacked along K is the tap sum as one product (prepared once)
+    # (timed eagerly, as the entry point times the kernels: the plain
+    # versions copy scalars from the host and cannot be captured in a graph)
     x_rep = {v: inputs[v][0].repeat(1, taps) for v in ("bf16_dot", "int8_dot")}
     w_cat = {v: inputs[v][1].reshape(taps * k, n) for v in ("bf16_dot", "int8_dot")}
-    lib_ms = {"bf16_dot": time_ms(lambda: torch.matmul(x_rep["bf16_dot"], w_cat["bf16_dot"]), 50),
-              "int8_dot": time_ms(lambda: torch._int_mm(x_rep["int8_dot"], w_cat["int8_dot"]), 50)}
+    lib_ms = {"bf16_dot": eager_ms(lambda: torch.matmul(x_rep["bf16_dot"], w_cat["bf16_dot"]), 50),
+              "int8_dot": eager_ms(lambda: torch._int_mm(x_rep["int8_dot"], w_cat["int8_dot"]), 50)}
     lib_name = {"bf16_dot": "torch.matmul bf16 (M x 9K) . (9K x N)",
                 "int8_dot": "torch._int_mm (M x 9K) . (9K x N)"}
     rows = {}
@@ -408,7 +503,7 @@ def phase_probe():
             f"{r['effective_tops']:.1f} TOP/s effective, bound {bms * 1e3:.2f} us ({by}); "
             f"library {lib_name.get(variant, 'none')}: "
             f"{'%.2f us' % (lm * 1e3) if lm is not None else 'none'}")
-        plain_ms = time_ms(lambda: probe_int8.probe_plain(variant, *inputs[variant]), 5)
+        plain_ms = eager_ms(lambda: probe_int8.probe_plain(variant, *inputs[variant]), 5)
         rows[variant] = dict(name=f"probe_int8 {variant}", launches=launches[variant],
                              max_abs_err=errs[variant], ms=r["us_per_call"] / 1e3,
                              plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lm,
@@ -437,14 +532,16 @@ def phase_forward(cascade: Cascade, params, gen):
 
 
 def conv_sites(unet_cfg, size: int):
-    """(name, int8?) of every 3x3 conv a forward at size x size runs, derived
+    """(name, kernel) of every 3x3 conv a forward at size x size runs, derived
     from the layer names and the level structure (not from a run): a
     level-i layer sees size / 2^(i+1) pixels a side with `memory_efficient`
     downsampling at each level's entry, size / 2^i without; an upsample's
     conv sees twice its level's side; init, final block and final conv see
     the full side. Where `quant_conv` is on, a conv is int8 if `_quant_site`
     admits that shape; the final conv never is, nor the unchunked init conv
-    (`nn.Conv` in the JAX forward)."""
+    (`nn.Conv` in the JAX forward). kernel is "int8", or the bf16 kernel
+    `conv3x3.route` picks ("wgmma" or "wmma"; the unchunked init conv
+    rounds its bias in bf16)."""
     L, sc = unet_cfg.num_levels, unet_cfg.spatial_chunks
     ch = sc if sc and size % (sc * 2**L) == 0 and size // sc >= 2 else 0
     me = unet_cfg.memory_efficient
@@ -468,34 +565,38 @@ def conv_sites(unet_cfg, size: int):
             r = side(int(m.group(2)))
         cin, cout = mod.kernel.shape[2], mod.kernel.shape[3]
         shape = (max(ch, 1), r // max(ch, 1), r, cin)
+        bias_in_dtype = top == "init_conv" and not ch
         int8 = (unet_cfg.quant_conv == "int8" and top != "final_conv"
-                and not (top == "init_conv" and not ch) and _quant_site(shape, cout, ch))
-        sites.append((name, int8))
+                and not bias_in_dtype and _quant_site(shape, cout, ch))
+        sites.append((name, "int8" if int8 else conv_mod.route(cin, cout, False, bias_in_dtype)))
     return sites
 
 
 def expected_launches(cfg, forwards) -> dict:
     """Kernel launches that `forwards` U-Net calls per stage must make: one
     per Conv3x3 module (every 3x3 conv; bf16 or int8 as `conv_sites` gates
-    it) and one per attention module."""
-    counts = {"conv3x3": 0, "conv3x3_int8": 0, "attention": 0}
+    it, and "conv3x3_wide" the bf16 ones on the wgmma kernel) and one per
+    attention module."""
+    counts = {"conv3x3": 0, "conv3x3_wide": 0, "conv3x3_int8": 0, "attention": 0}
     for n, fwd in forwards:
         st = cfg.stage(n)
-        sites = conv_sites(st.unet, st.image_size)
-        counts["conv3x3_int8"] += fwd * sum(q for _, q in sites)
-        counts["conv3x3"] += fwd * sum(not q for _, q in sites)
+        kinds = [k for _, k in conv_sites(st.unet, st.image_size)]
+        counts["conv3x3_int8"] += fwd * kinds.count("int8")
+        counts["conv3x3"] += fwd * (len(kinds) - kinds.count("int8"))
+        counts["conv3x3_wide"] += fwd * kinds.count("wgmma")
         counts["attention"] += fwd * sum(isinstance(m, (SelfAttention, CrossAttention))
                                          for m in build_model(st.unet).modules())
     return counts
 
 
 def zero_launches() -> None:
-    conv_mod.LAUNCHES = conv_mod.LAUNCHES_INT8 = attn_mod.LAUNCHES = 0
+    conv_mod.LAUNCHES = conv_mod.LAUNCHES_WIDE = conv_mod.LAUNCHES_INT8 = 0
+    attn_mod.LAUNCHES = 0
 
 
 def read_launches() -> dict:
-    return {"conv3x3": conv_mod.LAUNCHES, "conv3x3_int8": conv_mod.LAUNCHES_INT8,
-            "attention": attn_mod.LAUNCHES}
+    return {"conv3x3": conv_mod.LAUNCHES, "conv3x3_wide": conv_mod.LAUNCHES_WIDE,
+            "conv3x3_int8": conv_mod.LAUNCHES_INT8, "attention": attn_mod.LAUNCHES}
 
 
 def kernel_times(prof):
@@ -524,8 +625,9 @@ def phase_quant_forward(cascade: Cascade, params, gen):
     """Full-width stage 3 with the int8 + fp8 serving overrides, at the 256²
     training crop with spatial_chunks=16 (its three finest levels are int8
     sites): kernels on the card vs plain on the CPU. The same forward without
-    fp8 storage, and exact, show where the card and the CPU part: rounding
-    flips, amplified by int8, then by fp8."""
+    fp8 storage, and exact (also with every bf16 conv on the WMMA kernel),
+    show where the card and the CPU part: rounding flips, amplified by
+    int8, then by fp8."""
     t0 = time.perf_counter()
     unet = cascade.config.stage(3).unet
     bf16 = {k: v.bfloat16() for k, v in params.items()}
@@ -550,7 +652,13 @@ def phase_quant_forward(cascade: Cascade, params, gen):
             r = build_model(u, cpu_bf16)(x.cpu(), t.cpu(), **cpu_kw).float()
             spread[label] = ((g - r).norm() / r.norm()).item()
             if label == "exact bf16":
-                exact = g
+                exact, exact_ref = g, r
+                # the same forward on the WMMA kernel alone: the spread the
+                # wgmma kernel's own summation order is measured against
+                with wmma_only():
+                    g = build_model(u, bf16)(x, t, **kw).float().cpu()
+                spread["exact bf16 on the WMMA kernel alone"] = (
+                    (g - exact_ref).norm() / exact_ref.norm()).item()
     want = expected_launches(dataclasses.replace(
         cascade.config, stages=cascade.config.stages[:2] + (dataclasses.replace(
             cascade.config.stage(3), image_size=256),)), ((3, 1),))
@@ -690,6 +798,9 @@ def phase_serve(cascades, params, gen):
                     f"request B output {tuple(out_b.shape)}")
             require(0.0 <= out_b.min().item() and out_b.max().item() <= 1.0, "request B range")
     require(launches["C"]["conv3x3_int8"] > 0, str(launches["C"]))
+    wide = {k: launches[k]["conv3x3_wide"] for k in WIDE_LAUNCHES}
+    log(f"[serve] wgmma conv3x3 launches {wide} (the wide sites: {WIDE_LAUNCHES})")
+    require(wide == WIDE_LAUNCHES, f"wgmma conv3x3 launches {wide} != {WIDE_LAUNCHES}")
     for n, steps in FORWARDS_A:
         fa, fc = stages["A"][n], stages["C"][n]
         log(f"[serve] stage {n} ({steps} steps): A {fa[2]:.2f} ms/step (forward {fa[1]:.2f} ms), "
@@ -745,19 +856,23 @@ def main() -> None:
     if args.profile:
         phase_profile(cascades, params, gen)
 
+    # each kernel's own launches: the bf16 count holds both conv kernels
+    by_kernel = {k: dict(v, conv3x3=v["conv3x3"] - v["conv3x3_wide"])
+                 for k, v in launches.items()}
     kernels = []
     for kname, source, replaces, path in (
+            ("conv3x3_wide", WIDE_SOURCE, CONV_REPLACES, "A"),
             ("conv3x3", CONV_SOURCE, CONV_REPLACES, "A"),
             ("conv3x3_int8", CONV_SOURCE, CONV_INT8_REPLACES, "C"),
             ("attention", ATTN_SOURCE, ATTN_REPLACES, "A")):
         cases = rows[kname]
-        head = cases[0]  # the first case is the main path's heaviest shape
+        head = cases[0]  # the first case is the main path's heaviest shape for the kernel
         kernels.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
-            launches=launches[path][kname], max_abs_err=max(c["max_abs_err"] for c in cases),
+            launches=by_kernel[path][kname], max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
-            launches_by_request={k: v[kname] for k, v in launches.items()}, cases=cases))
+            launches_by_request={k: v[kname] for k, v in by_kernel.items()}, cases=cases))
     for variant, row in probe_rows.items():
         kernels.append(dict(route="cuda", source=PROBE_SOURCE, replaces=PROBE_REPLACES, **row))
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

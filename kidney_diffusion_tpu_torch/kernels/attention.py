@@ -58,6 +58,8 @@ def attention_cuda(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
     nk = k.shape[1]
     if k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+    if nq < 1 or nk < 1:
+        raise ValueError(f"attention needs at least one query and one key, got {nq}, {nk}")
     if d not in HEAD_DIMS:
         raise ValueError(f"the CUDA attention takes head widths {HEAD_DIMS}, got {d}")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):

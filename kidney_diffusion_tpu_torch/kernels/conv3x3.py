@@ -30,9 +30,18 @@ Options of the serving path (`xla_conv3x3` `:299-373`):
 
 Returns `out`, `(out, stats)`, `(out, ranges)` or `(out, stats, ranges)`.
 
-`conv3x3` runs the plain version for a tensor on the CPU and the CUDA
-kernel (`csrc/conv3x3.cu`, bf16 or int8 mode) for a tensor on the card;
-there is no fallback from one to the other.
+`conv3x3` runs the plain version for a tensor on the CPU and a CUDA kernel
+for a tensor on the card; there is no fallback from one to the other. Two
+hand-written kernels serve the card, chosen by `route`, a pure function of
+(Cin, Cout, quant, bias_in_dtype):
+
+- "wgmma" (`csrc/conv3x3_sm90.cu`): bf16 calls with Cin and Cout multiples
+  of 64 and the conv's own bias rounding — every conv of the flagship
+  U-Nets but the init and final convs. An implicit GEMM on Hopper's
+  `wgmma` over tiles of 256 or 128 pixels and 128 or 64 output channels,
+  with a split over K for the small deep maps (`wide_config`).
+- "wmma" (`csrc/conv3x3.cu`): the narrow ends (Cin 3 or 6, Cout 3), the
+  bf16-bias rounding of the unchunked init conv, and the whole int8 mode.
 """
 
 from __future__ import annotations
@@ -48,9 +57,20 @@ from . import _build
 Tensor = torch.Tensor
 QuantWeights = Tuple[Tensor, Tensor]  # (int8 (3, 3, Cin, Cout), fp32 (Cout,) scale)
 
-# launches of the CUDA kernel since the count was last set to 0, by mode
+# launches since the counts were last set to 0: bf16 calls (both kernels),
+# the wgmma kernel's share of them, and int8 calls
 LAUNCHES = 0
+LAUNCHES_WIDE = 0
 LAUNCHES_INT8 = 0
+
+# the wgmma kernel's tiles (rows, columns) of 128 and of 256 pixels, in
+# order of preference at an equal tile count (smaller halo'd patch first)
+WIDE_TILES = ((8, 16), (4, 32), (16, 8), (2, 64))
+WIDE_TILES_256 = ((16, 16), (8, 32), (32, 8), (4, 64))
+SMS = 132  # streaming multiprocessors of an H100 SXM: one wave of blocks
+# the largest halo'd patch (pixels) with which two blocks of 128 pixels x
+# 128 channels share an SM (`two_per_sm` in csrc/conv3x3_sm90.cu)
+TWO_PER_SM_PATCH = 192
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -164,6 +184,67 @@ def tile_w(width: int) -> int:
     return 64 if width > 32 else (32 if width > 16 else 16)
 
 
+def route(cin: int, cout: int, quant: bool = False, bias_in_dtype: bool = False) -> str:
+    """Which kernel serves a call on the card: "wgmma" for bf16 calls with
+    Cin and Cout multiples of 64 and the conv's own bias rounding, "wmma"
+    for the rest (narrow ends, `bias_in_dtype`, the int8 mode)."""
+    if quant or bias_in_dtype or cin % 64 or cout % 64:
+        return "wmma"
+    return "wgmma"
+
+
+def wide_tile(rows: int, width: int, pixels: int = 128) -> Tuple[int, int]:
+    """(rows, columns) of the wgmma kernel's tile of `pixels` (128 or 256)
+    for a map of rows x width: the fewest tiles, then the smallest halo'd
+    patch. A tile stays inside one batch item."""
+    def cost(t):
+        n_tiles = -(-rows // t[0]) * -(-width // t[1])
+        return n_tiles, (t[0] + 2) * (t[1] + 2)
+    return min(WIDE_TILES if pixels == 128 else WIDE_TILES_256, key=cost)
+
+
+def wide_bn(n_tiles: int, nb: int, cout: int) -> int:
+    """Output channels per block of the wgmma kernel: 128, or 64 where 128
+    would leave part of the card's first wave of blocks empty (small deep
+    maps) or Cout is an odd multiple of 64."""
+    if cout % 128 or n_tiles * nb * (cout // 128) < SMS:
+        return 64
+    return 128
+
+
+def wide_split(n_tiles: int, nb: int, cout: int, bn: int, cin: int) -> int:
+    """Splits of K = 9 * Cin for the wgmma kernel: 1, or, where the output
+    tiles fill under half of the card's SMs (the small deep maps, bound by
+    their weight bytes), about one wave of blocks, each split a run of whole
+    64-channel slices and none empty. The splits' partial sums are added in
+    a fixed order by a second kernel."""
+    blocks = n_tiles * nb * (cout // bn)
+    slices = cin // 64
+    if 2 * blocks > SMS:
+        return 1
+    per = -(-slices // min(slices, -(-SMS // blocks)))
+    return -(-slices // per)
+
+
+def wide_config(nb: int, rows: int, width: int, cin: int, cout: int):
+    """(tile rows, tile columns, output channels per block, splits of K)
+    of the wgmma kernel for an (nb, rows, width, cin) -> cout call. 128-pixel
+    tiles with `wide_bn` channels and `wide_split` splits; but where that
+    tile's patch is too large for two blocks to share an SM (4 x 32 and
+    2 x 64 tiles of 128 channels), 256-pixel tiles, if they still give
+    nearly a wave of blocks: a weight slice read from L2 then feeds twice
+    the products. (Where two 128-pixel blocks do share an SM, their overlap
+    is worth more on the H100 than the halved weight traffic.)"""
+    th, tw = wide_tile(rows, width)
+    n_tiles = -(-rows // th) * -(-width // tw)
+    bn = wide_bn(n_tiles, nb, cout)
+    if bn == 128 and (th + 2) * (tw + 2) > TWO_PER_SM_PATCH:
+        th2, tw2 = wide_tile(rows, width, 256)
+        if -(-rows // th2) * -(-width // tw2) * nb * (cout // 128) >= SMS * 9 // 10:
+            return th2, tw2, 128, 1
+    return th, tw, bn, wide_split(n_tiles, nb, cout, bn, cin)
+
+
 def _lib():
     lib = _build.library("conv3x3")
     if lib.kdt_conv3x3.argtypes is None:
@@ -174,14 +255,22 @@ def _lib():
     return lib
 
 
+def _lib_wide():
+    lib = _build.library("conv3x3_sm90")
+    if lib.kdt_conv3x3_wide.argtypes is None:
+        lib.kdt_conv3x3_wide.argtypes = [_P] * 8 + [_I] * 11 + [_P]
+        lib.kdt_conv3x3_wide.restype = _I
+    return lib
+
+
 def conv3x3_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
                  pro: Optional[Tensor] = None, want_stats: bool = False,
                  chunks: int = 0, quant: bool = False, a_max: Optional[Tensor] = None,
                  want_range: bool = False, bias_in_dtype: bool = False,
                  w_q: Optional[QuantWeights] = None):
-    """Launch the CUDA kernel. bf16 activations and weights (or `w_q`), fp32
-    bias, prologue, stats and ranges; raises on anything else."""
-    global LAUNCHES, LAUNCHES_INT8
+    """Launch the kernel `route` picks. bf16 activations and weights (or
+    `w_q`), fp32 bias, prologue, stats and ranges; raises on anything else."""
+    global LAUNCHES, LAUNCHES_WIDE, LAUNCHES_INT8
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3):
         raise ValueError(f"conv3x3 wants NHWC x and (3, 3, Cin, Cout) w, got {x.shape}, {w.shape}")
     nb, h, wd, cin = x.shape
@@ -204,15 +293,20 @@ def conv3x3_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
     if pro is not None:
         if tuple(pro.shape) != (nb, 2, cin):
             raise ValueError(f"pro must be {(nb, 2, cin)}, got {tuple(pro.shape)}")
-        pro = pro.to(device=dev, dtype=torch.float32).contiguous()
-    tw = tile_w(wd)
-    n_tiles = -(-wd // tw) * -(-h // (64 // tw))
+        pro = _build.aligned(pro.to(device=dev, dtype=torch.float32))
+    kernel = route(cin, cout, quant, bias_in_dtype)
+    if kernel == "wgmma":
+        th, tw, bn, ksplit = wide_config(nb, h, wd, cin, cout)
+    else:
+        tw = tile_w(wd)
+        th = 64 // tw
+    n_tiles = -(-wd // tw) * -(-h // th)
     y = torch.empty((nb, h, wd, cout), dtype=torch.bfloat16, device=dev)
     slots = lambda: torch.empty((nb, n_tiles, 2, cout), dtype=torch.float32, device=dev)  # noqa: E731
     partial = slots() if want_stats else None
     prange = slots() if want_range else None
     range_mode = (1 if want_stats else 2) if want_range else 0
-    lib = _lib()
+    lib = _lib_wide() if kernel == "wgmma" else _lib()
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
     if quant:
@@ -230,6 +324,16 @@ def conv3x3_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
             ptr(prange), nb, h, wd, cin, cout, int(chunks), tw, range_mode, stream)
         _build.check(lib, rc, "conv3x3 int8")
         LAUNCHES_INT8 += 1
+    elif kernel == "wgmma":
+        wb = _build.aligned(w.to(torch.bfloat16))
+        ws = (torch.empty((ksplit, nb, h, wd, cout), dtype=torch.float32, device=dev)
+              if ksplit > 1 else None)
+        rc = lib.kdt_conv3x3_wide(
+            ptr(x), ptr(wb), ptr(bias), ptr(pro), ptr(y), ptr(partial), ptr(prange), ptr(ws),
+            nb, h, wd, cin, cout, int(chunks), th, tw, bn, ksplit, range_mode, stream)
+        _build.check(lib, rc, "conv3x3 wgmma")
+        LAUNCHES += 1
+        LAUNCHES_WIDE += 1
     else:
         wb = _build.aligned(w.to(torch.bfloat16))
         rc = lib.kdt_conv3x3(

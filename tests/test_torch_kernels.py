@@ -199,3 +199,164 @@ def test_wrappers_refuse_other_devices():
     q = torch.empty((1, 4, 1, 8), device="meta")
     with pytest.raises(ValueError):
         tatt.attention(q, q, q)
+
+
+def _flagship_conv_sites():
+    """(stage, name, Cin, Cout, bias_in_dtype) of every Conv3x3 of the
+    flagship's three U-Nets, built on the meta device."""
+    from kidney_diffusion_tpu_torch.convert import build_model
+    from kidney_diffusion_tpu_torch.models.blocks import Conv3x3
+    from kidney_diffusion_tpu_torch.models.configs import ultra_res
+
+    cfg = ultra_res(0, "v_param")
+    sites = []
+    for n in (1, 2, 3):
+        unet = cfg.stage(n).unet
+        for name, mod in build_model(unet).named_modules():
+            if isinstance(mod, Conv3x3):
+                # the unchunked init conv rounds its bias in bf16 (`unet.py`)
+                bid = name == "init_conv" and not unet.spatial_chunks
+                sites.append((n, name, mod.kernel.shape[2], mod.kernel.shape[3], bid))
+    return sites
+
+
+def test_conv_routing_over_the_flagship_sites():
+    """The card's two conv kernels split the flagship's 3x3 convs by a pure
+    function of (Cin, Cout, quant, bias_in_dtype): 237 wide sites go to the
+    wgmma kernel and the 6 narrow ends (init and final convs) to the WMMA
+    kernel; int8 and the bf16-bias rounding always go to the WMMA kernel."""
+    sites = _flagship_conv_sites()
+    routes = [tc3.route(cin, cout, bias_in_dtype=bid) for _, _, cin, cout, bid in sites]
+    assert routes.count("wgmma") == 237 and routes.count("wmma") == 6
+    by_stage = {n: sum(r == "wgmma" for (s, *_), r in zip(sites, routes) if s == n)
+                for n in (1, 2, 3)}
+    assert by_stage == {1: 73, 2: 58, 3: 106}
+    for (_, name, cin, cout, bid), r in zip(sites, routes):
+        assert (r == "wmma") == (name in ("init_conv", "final_conv")), name
+        assert tc3.route(cin, cout, quant=True) == "wmma"
+        assert tc3.route(cin, cout, bias_in_dtype=True) == "wmma"
+        assert bid <= (r == "wmma")
+
+
+def test_smoke_launch_counts_of_the_served_requests():
+    """What `chip_smoke.py` requires of requests A (bf16) and C (int8 + fp8
+    stage 3) per conv kernel, derived from the layers: A makes 3699 wgmma +
+    108 WMMA bf16 launches, C 3275 + 108 plus 424 int8."""
+    import chip_smoke as cs
+    from kidney_diffusion_tpu_torch.models.configs import serving_overrides, ultra_res
+
+    flagship = ultra_res(0, "v_param")
+    want_a = cs.expected_launches(flagship, cs.FORWARDS_A)
+    served = serving_overrides(flagship, quant="int8", storage="float8_e4m3fn")
+    want_c = cs.expected_launches(served, cs.FORWARDS_A)
+    assert want_a == {"conv3x3": 3807, "conv3x3_wide": 3699, "conv3x3_int8": 0,
+                      "attention": 562}
+    assert want_c == {"conv3x3": 3383, "conv3x3_wide": 3275, "conv3x3_int8": 424,
+                      "attention": 562}
+
+
+def test_wide_tiles_fit_the_kernel():
+    """Every wgmma tile is 128 or 256 pixels of one batch item, a whole
+    number of 8-pixel rows, with a halo'd patch inside the kernel's patch
+    buffer (264 or 396 pixels); each flagship map gets the tile that covers
+    it fewest times."""
+    for rows, width in [(4, 4), (8, 8), (16, 16), (32, 32), (64, 64), (4, 64), (8, 128),
+                        (16, 256), (32, 512), (64, 1024), (128, 128), (256, 256), (5, 130)]:
+        for pixels, tiles, patch in ((128, tc3.WIDE_TILES, 264), (256, tc3.WIDE_TILES_256, 396)):
+            th, tw = tc3.wide_tile(rows, width, pixels)
+            assert th * tw == pixels and tw % 8 == 0 and (th + 2) * (tw + 2) <= patch
+            n = -(-rows // th) * -(-width // tw)
+            assert n == min(-(-rows // a) * -(-width // b) for a, b in tiles)
+    assert tc3.wide_tile(4, 64) == (4, 32)  # stage 3's skip concat: 2 tiles, not 4
+    # 256-pixel tiles of 128 channels where a 128-pixel tile's patch keeps
+    # its blocks one to an SM, and the larger tiles still give ~a wave
+    assert tc3.wide_config(16, 4, 64, 2048, 1024) == (4, 64, 128, 1)  # case (e)
+    assert tc3.wide_config(16, 32, 512, 128, 128) == (8, 16, 128, 1)  # case (a)
+    assert 6 * 34 > tc3.TWO_PER_SM_PATCH >= 10 * 18  # 4 x 32 tiles: one an SM; 8 x 16: two
+    assert tc3.wide_config(1, 16, 16, 768, 768) == (8, 16, 64, 6)  # case (c)
+    assert tc3.wide_config(1, 128, 128, 128, 128) == (8, 16, 64, 1)
+    assert tc3.wide_bn(128, 16, 128) == 128 and tc3.wide_bn(2, 1, 768) == 64
+    assert tc3.wide_bn(4096, 1, 320) == 64  # an odd multiple of 64
+    # a split over K only where the tiles fill under half the card; every
+    # split a nonempty run of whole 64-channel slices
+    assert tc3.wide_split(128, 16, 128, 128, 128) == 1
+    assert tc3.wide_split(2, 1, 768, 64, 768) == 6  # case (c): 24 -> 144 blocks
+    for blocks in range(1, 70):
+        for slices in (2, 12, 16, 24, 32):
+            k = tc3.wide_split(blocks, 1, 64, 64, 64 * slices)
+            per = -(-slices // k)
+            assert 1 <= k <= slices and (k - 1) * per < slices
+            assert k == 1 or k == slices or blocks * k >= 66
+
+
+@pytest.mark.parametrize("pixels", [128, 256])
+@pytest.mark.parametrize("rows,width", [(7, 40), (4, 64), (8, 8), (3, 130)])
+def test_conv3x3_wide_tile_slots_finish_to_plain_stats(rows, width, pixels):
+    """The wgmma kernel writes one [sum z, sum z^2] slot per `wide_tile` of
+    128 or 256 pixels, over its valid pixels; summed and finished by the
+    wrapper they give the plain stats."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(2, rows, width, 4)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(3, 3, 4, 5)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(5,)).astype(np.float32))
+    _, want = tc3.conv3x3(x, w, b, want_stats=True)
+    z = tc3.conv3x3(x, w, None).double()
+    th, tw = tc3.wide_tile(rows, width, pixels)
+    slots = [torch.stack([t.sum((1, 2)), (t * t).sum((1, 2))], 1)
+             for y0 in range(0, rows, th) for x0 in range(0, width, tw)
+             for t in [z[:, y0:y0 + th, x0:x0 + tw]]]
+    s = torch.stack(slots, 1).sum(1).float()
+    got = tc3.finish_stats(s[:, 0], s[:, 1], rows * width, b)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-3)
+
+
+def flash_attention_emulation(q, k, v, tile=64, first=0):
+    """The CUDA kernel's algorithm in plain PyTorch: q scaled in its dtype,
+    64-key tiles taken from tile `first` on (a block of the kernel starts at
+    its query tile's index, modulo the tile count), fp32 scores, a running
+    max and sum, P = exp(s - running max) rounded to v's dtype before P.V,
+    O normalised once at the end."""
+    scale = q.shape[-1] ** -0.5
+    qs = (q * scale).float().permute(0, 2, 1, 3)  # (B, H, Nq, D)
+    kf, vf = (t.float().permute(0, 2, 1, 3) for t in (k, v))
+    b, h, nq, d = qs.shape
+    m = torch.full((b, h, nq, 1), -float("inf"))
+    l = torch.zeros((b, h, nq, 1))
+    acc = torch.zeros((b, h, nq, d))
+    n_tiles = -(-kf.shape[2] // tile)
+    for t in range(n_tiles):
+        k0 = (t + first) % n_tiles * tile
+        s = qs @ kf[:, :, k0:k0 + tile].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.to(v.dtype).float() @ vf[:, :, k0:k0 + tile]
+        m = m_new
+    return (acc / l).to(v.dtype).permute(0, 2, 1, 3)
+
+
+# name: (batch, nq, nk, heads, dim_head) — the card's cases, narrowed
+FLASH_CASES = {
+    "self_plus_context": (1, 200, 202, 2, 64),
+    "two_tiles_of_keys": (1, 70, 100, 2, 64),
+    "ragged_queries_two_keys": (1, 130, 2, 2, 64),
+    "cross_four_keys": (1, 96, 4, 2, 64),
+    "head_width_32": (2, 96, 98, 2, 32),
+}
+
+
+@pytest.mark.parametrize("first", [0, 1])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_emulation_matches_plain_within_attn_tol(case, first):
+    """The blockwise online softmax with bf16-rounded P that the CUDA
+    kernel runs agrees with `attention_plain` within `chip_smoke.ATTN_TOL`
+    on bf16 inputs (the one accepted rounding deviation), whichever tile a
+    block starts at (a partial last tile first included)."""
+    import chip_smoke as cs
+
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(*FLASH_CASES[case], seed=7))
+    got = flash_attention_emulation(q, k, v, first=first)
+    ref = tatt.attention_plain(q, k, v)
+    assert got.shape == ref.shape and got.dtype == torch.bfloat16
+    cs.check(case, got.float(), ref.float(), cs.ATTN_TOL)
