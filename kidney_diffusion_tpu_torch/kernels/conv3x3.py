@@ -31,17 +31,22 @@ Options of the serving path (`xla_conv3x3` `:299-373`):
 Returns `out`, `(out, stats)`, `(out, ranges)` or `(out, stats, ranges)`.
 
 `conv3x3` runs the plain version for a tensor on the CPU and a CUDA kernel
-for a tensor on the card; there is no fallback from one to the other. Two
+for a tensor on the card; there is no fallback from one to the other. Three
 hand-written kernels serve the card, chosen by `route`, a pure function of
 (Cin, Cout, quant, bias_in_dtype):
 
-- "wgmma" (`csrc/conv3x3_sm90.cu`): bf16 calls with Cin and Cout multiples
-  of 64 and the conv's own bias rounding — every conv of the flagship
-  U-Nets but the init and final convs. An implicit GEMM on Hopper's
-  `wgmma` over tiles of 256 or 128 pixels and 128 or 64 output channels,
-  with a split over K for the small deep maps (`wide_config`).
-- "wmma" (`csrc/conv3x3.cu`): the narrow ends (Cin 3 or 6, Cout 3), the
-  bf16-bias rounding of the unchunked init conv, and the whole int8 mode.
+- "wgmma" and "wgmma_int8" (`csrc/conv3x3_sm90.cu`): calls with Cin and
+  Cout multiples of 64 — in bf16 with the conv's own bias rounding, every
+  conv of the flagship U-Nets but the init and final convs; in int8, every
+  int8 site. An implicit GEMM on Hopper's `wgmma` over tiles of 256 or 128
+  pixels and 128 or 64 output channels, with a split over K for the small
+  deep maps (`wide_config`); the int8 mode takes its weights K-major
+  (`kmajor_weights`, laid out once per weight tensor) and quantizes the
+  input while staging it.
+- "narrow" (`csrc/conv3x3_narrow.cu`): bf16 init convs (Cin <= 8) and final
+  convs (Cout <= 8), either bias rounding (`narrow`).
+- "wmma" (`csrc/conv3x3.cu`): the rest — ragged widths of other
+  configurations, in either mode. No flagship call comes here.
 """
 
 from __future__ import annotations
@@ -55,13 +60,18 @@ import torch.nn.functional as F
 from . import _build
 
 Tensor = torch.Tensor
-QuantWeights = Tuple[Tensor, Tensor]  # (int8 (3, 3, Cin, Cout), fp32 (Cout,) scale)
+# (int8 (3, 3, Cin, Cout), fp32 (Cout,) scale), optionally followed by the
+# int8 weights laid out K-major, (3, 3, Cout, Cin), for the wgmma int8 kernel
+QuantWeights = Tuple[Tensor, ...]
 
-# launches since the counts were last set to 0: bf16 calls (both kernels),
-# the wgmma kernel's share of them, and int8 calls
+# launches since the counts were last set to 0: bf16 calls (all kernels),
+# the wgmma kernel's and the narrow kernel's shares of them; int8 calls
+# (both kernels) and the wgmma int8 kernel's share of them
 LAUNCHES = 0
 LAUNCHES_WIDE = 0
+LAUNCHES_NARROW = 0
 LAUNCHES_INT8 = 0
+LAUNCHES_INT8_WIDE = 0
 
 # the wgmma kernel's tiles (rows, columns) of 128 and of 256 pixels, in
 # order of preference at an equal tile count (smaller halo'd patch first)
@@ -71,6 +81,13 @@ SMS = 132  # streaming multiprocessors of an H100 SXM: one wave of blocks
 # the largest halo'd patch (pixels) with which two blocks of 128 pixels x
 # 128 channels share an SM (`two_per_sm` in csrc/conv3x3_sm90.cu)
 TWO_PER_SM_PATCH = 192
+# input channels per slice of the wgmma kernels: 128-byte patch pixels
+WIDE_KC = {False: 64, True: 128}
+# the narrow kernel (csrc/conv3x3_narrow.cu): the final conv's tile (rows,
+# columns) and the widths each of its two kernels takes
+NARROW_OUT_TILE = (4, 64)
+NARROW_MAX_COUT, NARROW_OUT_MAX_CIN = 8, 256
+NARROW_MAX_CIN, NARROW_IN_MAX_COUT = 8, 512
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -116,6 +133,13 @@ def quantize_weights(w: Tensor) -> QuantWeights:
     return wq, s_w
 
 
+def kmajor_weights(wq: Tensor) -> Tensor:
+    """int8 weights (3, 3, Cin, Cout) laid out K-major, (3, 3, Cout, Cin):
+    8-bit `wgmma` takes B only with K contiguous. Made once per weight
+    tensor by a caller that reuses the weights (`Conv3x3.quantized_weights`)."""
+    return wq.permute(0, 1, 3, 2).contiguous()
+
+
 def activation_scale(x: Tensor, a_max: Optional[Tensor]) -> Tensor:
     """The per-tensor int8 scale (fp32 scalar) of the conv input `x` (after
     its prologue): from the bound `a_max`, else from x's amax in its dtype."""
@@ -146,7 +170,7 @@ def conv3x3_plain(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
     padding = (0, 1) if chunks else (1, 1)
     if quant:
         s_a = activation_scale(x, a_max)
-        wq, s_w = w_q if w_q is not None else quantize_weights(w)
+        wq, s_w = (w_q if w_q is not None else quantize_weights(w))[:2]
         xin = torch.clamp(torch.round(x.float() / s_a), -127, 127).double()
         wk = wq.double().permute(3, 2, 0, 1)  # HWIO -> OIHW
     else:
@@ -184,13 +208,26 @@ def tile_w(width: int) -> int:
     return 64 if width > 32 else (32 if width > 16 else 16)
 
 
+def narrow(cin: int, cout: int) -> bool:
+    """Whether the narrow kernel takes a bf16 (Cin, Cout) call: a final conv
+    (Cout <= 8, Cin a multiple of 64 up to 256) or an init conv (Cin <= 8,
+    Cout a multiple of 64 up to 512)."""
+    return ((cout <= NARROW_MAX_COUT and cin % 64 == 0 and 64 <= cin <= NARROW_OUT_MAX_CIN)
+            or (cin <= NARROW_MAX_CIN and cout % 64 == 0 and 64 <= cout <= NARROW_IN_MAX_COUT))
+
+
 def route(cin: int, cout: int, quant: bool = False, bias_in_dtype: bool = False) -> str:
-    """Which kernel serves a call on the card: "wgmma" for bf16 calls with
-    Cin and Cout multiples of 64 and the conv's own bias rounding, "wmma"
-    for the rest (narrow ends, `bias_in_dtype`, the int8 mode)."""
-    if quant or bias_in_dtype or cin % 64 or cout % 64:
-        return "wmma"
-    return "wgmma"
+    """Which kernel serves a call on the card: int8 calls with Cin and Cout
+    multiples of 64 go to "wgmma_int8"; bf16 calls to "narrow" where
+    `narrow` takes them (either bias rounding), else with Cin and Cout
+    multiples of 64 and the conv's own bias rounding to "wgmma"; the rest
+    (other ragged widths, in either mode) to "wmma"."""
+    wide = cin % 64 == 0 and cout % 64 == 0
+    if quant:
+        return "wgmma_int8" if wide else "wmma"
+    if narrow(cin, cout):
+        return "narrow"
+    return "wgmma" if wide and not bias_in_dtype else "wmma"
 
 
 def wide_tile(rows: int, width: int, pixels: int = 128) -> Tuple[int, int]:
@@ -212,23 +249,25 @@ def wide_bn(n_tiles: int, nb: int, cout: int) -> int:
     return 128
 
 
-def wide_split(n_tiles: int, nb: int, cout: int, bn: int, cin: int) -> int:
-    """Splits of K = 9 * Cin for the wgmma kernel: 1, or, where the output
+def wide_split(n_tiles: int, nb: int, cout: int, bn: int, cin: int, kc: int = 64) -> int:
+    """Splits of K = 9 * Cin for the wgmma kernels: 1, or, where the output
     tiles fill under half of the card's SMs (the small deep maps, bound by
     their weight bytes), about one wave of blocks, each split a run of whole
-    64-channel slices and none empty. The splits' partial sums are added in
-    a fixed order by a second kernel."""
+    `kc`-channel slices (64 in bf16, 128 in int8) and none empty. The
+    splits' partial sums (fp32, or int32 in int8) are added in a fixed
+    order by a second kernel."""
     blocks = n_tiles * nb * (cout // bn)
-    slices = cin // 64
+    slices = -(-cin // kc)
     if 2 * blocks > SMS:
         return 1
     per = -(-slices // min(slices, -(-SMS // blocks)))
     return -(-slices // per)
 
 
-def wide_config(nb: int, rows: int, width: int, cin: int, cout: int):
+def wide_config(nb: int, rows: int, width: int, cin: int, cout: int, quant: bool = False):
     """(tile rows, tile columns, output channels per block, splits of K)
-    of the wgmma kernel for an (nb, rows, width, cin) -> cout call. 128-pixel
+    of the wgmma kernel (bf16, or int8 with `quant`: the same tiles, slices
+    of 128 channels) for an (nb, rows, width, cin) -> cout call. 128-pixel
     tiles with `wide_bn` channels and `wide_split` splits; but where that
     tile's patch is too large for two blocks to share an SM (4 x 32 and
     2 x 64 tiles of 128 channels), 256-pixel tiles, if they still give
@@ -242,7 +281,7 @@ def wide_config(nb: int, rows: int, width: int, cin: int, cout: int):
         th2, tw2 = wide_tile(rows, width, 256)
         if -(-rows // th2) * -(-width // tw2) * nb * (cout // 128) >= SMS * 9 // 10:
             return th2, tw2, 128, 1
-    return th, tw, bn, wide_split(n_tiles, nb, cout, bn, cin)
+    return th, tw, bn, wide_split(n_tiles, nb, cout, bn, cin, WIDE_KC[quant])
 
 
 def _lib():
@@ -260,6 +299,16 @@ def _lib_wide():
     if lib.kdt_conv3x3_wide.argtypes is None:
         lib.kdt_conv3x3_wide.argtypes = [_P] * 8 + [_I] * 11 + [_P]
         lib.kdt_conv3x3_wide.restype = _I
+        lib.kdt_conv3x3_wide_int8.argtypes = [_P] * 10 + [_I] * 11 + [_P]
+        lib.kdt_conv3x3_wide_int8.restype = _I
+    return lib
+
+
+def _lib_narrow():
+    lib = _build.library("conv3x3_narrow")
+    if lib.kdt_conv3x3_narrow.argtypes is None:
+        lib.kdt_conv3x3_narrow.argtypes = [_P] * 7 + [_I] * 10 + [_P]
+        lib.kdt_conv3x3_narrow.restype = _I
     return lib
 
 
@@ -270,7 +319,7 @@ def conv3x3_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
                  w_q: Optional[QuantWeights] = None):
     """Launch the kernel `route` picks. bf16 activations and weights (or
     `w_q`), fp32 bias, prologue, stats and ranges; raises on anything else."""
-    global LAUNCHES, LAUNCHES_WIDE, LAUNCHES_INT8
+    global LAUNCHES, LAUNCHES_WIDE, LAUNCHES_NARROW, LAUNCHES_INT8, LAUNCHES_INT8_WIDE
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3):
         raise ValueError(f"conv3x3 wants NHWC x and (3, 3, Cin, Cout) w, got {x.shape}, {w.shape}")
     nb, h, wd, cin = x.shape
@@ -295,8 +344,10 @@ def conv3x3_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
             raise ValueError(f"pro must be {(nb, 2, cin)}, got {tuple(pro.shape)}")
         pro = _build.aligned(pro.to(device=dev, dtype=torch.float32))
     kernel = route(cin, cout, quant, bias_in_dtype)
-    if kernel == "wgmma":
-        th, tw, bn, ksplit = wide_config(nb, h, wd, cin, cout)
+    if kernel in ("wgmma", "wgmma_int8"):
+        th, tw, bn, ksplit = wide_config(nb, h, wd, cin, cout, quant)
+    elif kernel == "narrow":
+        th, tw = NARROW_OUT_TILE if cout <= NARROW_MAX_COUT else wide_tile(h, wd)
     else:
         tw = tile_w(wd)
         th = 64 // tw
@@ -306,7 +357,6 @@ def conv3x3_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
     partial = slots() if want_stats else None
     prange = slots() if want_range else None
     range_mode = (1 if want_stats else 2) if want_range else 0
-    lib = _lib_wide() if kernel == "wgmma" else _lib()
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
     if quant:
@@ -314,32 +364,59 @@ def conv3x3_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
         # the prologue'd tensor (only the dynamic-amax escape hatch gets here)
         xs = apply_prologue(x, pro) if (pro is not None and a_max is None) else x
         s_a = activation_scale(xs, None if a_max is None else a_max.to(dev)).reshape(1)
-        wq, s_w = w_q if w_q is not None else quantize_weights(w)
+        w_q = w_q if w_q is not None else quantize_weights(w)
+        wq, s_w = w_q[:2]
         if wq.dtype != torch.int8 or tuple(wq.shape) != tuple(w.shape) or wq.device != dev:
             raise ValueError(f"w_q must be int8 {tuple(w.shape)} on {dev}")
         sasw = (s_a * s_w.to(dev)).contiguous()
-        wq = _build.aligned(wq)
-        rc = lib.kdt_conv3x3_int8(
-            ptr(x), ptr(wq), ptr(s_a), ptr(sasw), ptr(bias), ptr(pro), ptr(y), ptr(partial),
-            ptr(prange), nb, h, wd, cin, cout, int(chunks), tw, range_mode, stream)
-        _build.check(lib, rc, "conv3x3 int8")
+        if kernel == "wgmma_int8":
+            wk = w_q[2] if len(w_q) > 2 else kmajor_weights(wq)
+            if wk.dtype != torch.int8 or tuple(wk.shape) != (3, 3, cout, cin):
+                raise ValueError(f"K-major w_q must be int8 {(3, 3, cout, cin)}")
+            wk = _build.aligned(wk)
+            ws = (torch.empty((ksplit, nb, h, wd, cout), dtype=torch.int32, device=dev)
+                  if ksplit > 1 else None)
+            lib = _lib_wide()
+            rc = lib.kdt_conv3x3_wide_int8(
+                ptr(x), ptr(wk), ptr(s_a), ptr(sasw), ptr(bias), ptr(pro), ptr(y), ptr(partial),
+                ptr(prange), ptr(ws), nb, h, wd, cin, cout, int(chunks), th, tw, bn, ksplit,
+                range_mode, stream)
+            _build.check(lib, rc, "conv3x3 wgmma int8")
+            LAUNCHES_INT8_WIDE += 1
+        else:
+            lib = _lib()
+            rc = lib.kdt_conv3x3_int8(
+                ptr(x), ptr(_build.aligned(wq)), ptr(s_a), ptr(sasw), ptr(bias), ptr(pro),
+                ptr(y), ptr(partial), ptr(prange), nb, h, wd, cin, cout, int(chunks), tw,
+                range_mode, stream)
+            _build.check(lib, rc, "conv3x3 int8")
         LAUNCHES_INT8 += 1
-    elif kernel == "wgmma":
-        wb = _build.aligned(w.to(torch.bfloat16))
-        ws = (torch.empty((ksplit, nb, h, wd, cout), dtype=torch.float32, device=dev)
-              if ksplit > 1 else None)
-        rc = lib.kdt_conv3x3_wide(
-            ptr(x), ptr(wb), ptr(bias), ptr(pro), ptr(y), ptr(partial), ptr(prange), ptr(ws),
-            nb, h, wd, cin, cout, int(chunks), th, tw, bn, ksplit, range_mode, stream)
-        _build.check(lib, rc, "conv3x3 wgmma")
-        LAUNCHES += 1
-        LAUNCHES_WIDE += 1
     else:
         wb = _build.aligned(w.to(torch.bfloat16))
-        rc = lib.kdt_conv3x3(
-            ptr(x), ptr(wb), ptr(bias), ptr(pro), ptr(y), ptr(partial), ptr(prange),
-            nb, h, wd, cin, cout, int(chunks), tw, range_mode, int(bias_in_dtype), stream)
-        _build.check(lib, rc, "conv3x3")
+        if kernel == "wgmma":
+            ws = (torch.empty((ksplit, nb, h, wd, cout), dtype=torch.float32, device=dev)
+                  if ksplit > 1 else None)
+            lib = _lib_wide()
+            rc = lib.kdt_conv3x3_wide(
+                ptr(x), ptr(wb), ptr(bias), ptr(pro), ptr(y), ptr(partial), ptr(prange),
+                ptr(ws), nb, h, wd, cin, cout, int(chunks), th, tw, bn, ksplit, range_mode,
+                stream)
+            _build.check(lib, rc, "conv3x3 wgmma")
+            LAUNCHES_WIDE += 1
+        elif kernel == "narrow":
+            lib = _lib_narrow()
+            rc = lib.kdt_conv3x3_narrow(
+                ptr(x), ptr(wb), ptr(bias), ptr(pro), ptr(y), ptr(partial), ptr(prange),
+                nb, h, wd, cin, cout, int(chunks), th, tw, range_mode, int(bias_in_dtype),
+                stream)
+            _build.check(lib, rc, "conv3x3 narrow")
+            LAUNCHES_NARROW += 1
+        else:
+            lib = _lib()
+            rc = lib.kdt_conv3x3(
+                ptr(x), ptr(wb), ptr(bias), ptr(pro), ptr(y), ptr(partial), ptr(prange),
+                nb, h, wd, cin, cout, int(chunks), tw, range_mode, int(bias_in_dtype), stream)
+            _build.check(lib, rc, "conv3x3")
         LAUNCHES += 1
     stats = ranges = None
     if want_stats:

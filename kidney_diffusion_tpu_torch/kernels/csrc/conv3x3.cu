@@ -52,10 +52,11 @@
 // memory, writes each tile's per-channel stats and range to its own slot of
 // a scratch tensor (no atomics: blocks run in no fixed order, the wrapper
 // reduces the slots in a fixed order), adds the bias and stores bf16. It
-// serves the calls `kernels/conv3x3.py::route` sends it: the narrow ends
-// (Cin 3 or 6, Cout 3), the bf16-bias rounding of the unchunked init conv,
-// and the whole int8 mode; the wide bf16 convs run on `conv3x3_sm90.cu`
-// (`wgmma`). The int8 mode on `wgmma` s8 is later work.
+// serves the calls `kernels/conv3x3.py::route` sends it: ragged widths that
+// neither `conv3x3_sm90.cu` (bf16 and int8 calls with Cin and Cout
+// multiples of 64, on `wgmma`) nor `conv3x3_narrow.cu` (the init and final
+// convs) takes, in either mode, and the bf16-bias rounding at such widths.
+// No call of the flagship cascade comes here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.attention import attention
-from ..kernels.conv3x3 import conv3x3, quantize_weights
+from ..kernels.conv3x3 import conv3x3, kmajor_weights, quantize_weights
 
 Tensor = torch.Tensor
 
@@ -203,10 +203,14 @@ class Conv3x3(nn.Module):
 
     def quantized_weights(self, w: Tensor):
         """`quantize_weights(w)` for this module's current weights, made once
-        and reused while the parameter is unchanged."""
+        and reused while the parameter is unchanged; on the card followed by
+        the same int8 weights laid out K-major for the wgmma int8 kernel."""
         key = (self.kernel.data_ptr(), self.kernel._version, w.dtype, w.device)
         if self._w_q[0] != key:
-            self._w_q = (key, quantize_weights(w))
+            w_q = quantize_weights(w)
+            if w.device.type == "cuda":
+                w_q = w_q + (kmajor_weights(w_q[0]),)
+            self._w_q = (key, w_q)
         return self._w_q[1]
 
     def forward(self, x: Tensor, pro: Optional[Tensor] = None, want_stats: bool = False,

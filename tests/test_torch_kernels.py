@@ -221,27 +221,43 @@ def _flagship_conv_sites():
 
 
 def test_conv_routing_over_the_flagship_sites():
-    """The card's two conv kernels split the flagship's 3x3 convs by a pure
-    function of (Cin, Cout, quant, bias_in_dtype): 237 wide sites go to the
-    wgmma kernel and the 6 narrow ends (init and final convs) to the WMMA
-    kernel; int8 and the bf16-bias rounding always go to the WMMA kernel."""
+    """The card's conv kernels split the flagship's 3x3 convs by a pure
+    function of (Cin, Cout, quant, bias_in_dtype): in bf16, 237 wide sites
+    go to the wgmma kernel and the 6 narrow ends (init and final convs, the
+    unchunked init conv with its bf16-bias rounding) to the narrow kernel;
+    the 106 int8 sites of the served config go to the wgmma int8 kernel; no
+    flagship site goes to the WMMA kernel, which keeps ragged widths."""
+    import chip_smoke as cs
+    from kidney_diffusion_tpu_torch.models.configs import serving_overrides, ultra_res
+
     sites = _flagship_conv_sites()
     routes = [tc3.route(cin, cout, bias_in_dtype=bid) for _, _, cin, cout, bid in sites]
-    assert routes.count("wgmma") == 237 and routes.count("wmma") == 6
+    assert routes.count("wgmma") == 237 and routes.count("narrow") == 6
     by_stage = {n: sum(r == "wgmma" for (s, *_), r in zip(sites, routes) if s == n)
                 for n in (1, 2, 3)}
     assert by_stage == {1: 73, 2: 58, 3: 106}
     for (_, name, cin, cout, bid), r in zip(sites, routes):
-        assert (r == "wmma") == (name in ("init_conv", "final_conv")), name
-        assert tc3.route(cin, cout, quant=True) == "wmma"
-        assert tc3.route(cin, cout, bias_in_dtype=True) == "wmma"
-        assert bid <= (r == "wmma")
+        assert (r == "narrow") == (name in ("init_conv", "final_conv")), name
+        assert tc3.route(cin, cout, bias_in_dtype=True) == ("narrow" if r == "narrow" else "wmma")
+        assert bid <= (r == "narrow")
+        if r == "wgmma":
+            assert tc3.route(cin, cout, quant=True) == "wgmma_int8"
+    served = serving_overrides(ultra_res(0, "v_param"), quant="int8", storage="float8_e4m3fn")
+    kinds = {n: [k for _, k in cs.conv_sites(served.stage(n).unet, served.stage(n).image_size)]
+             for n in (1, 2, 3)}
+    assert kinds[3].count("wgmma_int8") == 106 and kinds[3].count("narrow") == 2
+    assert not any(k in ("wmma", "wmma_int8") for ks in kinds.values() for k in ks)
+    # ragged widths stay on the WMMA kernel, in both modes
+    assert tc3.route(96, 96) == tc3.route(96, 96, quant=True) == "wmma"
+    assert tc3.route(16, 32) == tc3.route(3, 40) == tc3.route(48, 3) == "wmma"
 
 
 def test_smoke_launch_counts_of_the_served_requests():
     """What `chip_smoke.py` requires of requests A (bf16) and C (int8 + fp8
-    stage 3) per conv kernel, derived from the layers: A makes 3699 wgmma +
-    108 WMMA bf16 launches, C 3275 + 108 plus 424 int8."""
+    stage 3) per conv kernel, derived from the layers: A makes 3807 bf16
+    launches, 3699 on the wgmma kernel and 108 on the narrow one; C 3383
+    bf16 (3275 wgmma + 108 narrow) and 424 int8, all on the wgmma int8
+    kernel; neither request leaves a launch to the WMMA kernel."""
     import chip_smoke as cs
     from kidney_diffusion_tpu_torch.models.configs import serving_overrides, ultra_res
 
@@ -249,10 +265,19 @@ def test_smoke_launch_counts_of_the_served_requests():
     want_a = cs.expected_launches(flagship, cs.FORWARDS_A)
     served = serving_overrides(flagship, quant="int8", storage="float8_e4m3fn")
     want_c = cs.expected_launches(served, cs.FORWARDS_A)
-    assert want_a == {"conv3x3": 3807, "conv3x3_wide": 3699, "conv3x3_int8": 0,
-                      "attention": 562}
-    assert want_c == {"conv3x3": 3383, "conv3x3_wide": 3275, "conv3x3_int8": 424,
-                      "attention": 562}
+    assert want_a == {"conv3x3": 3807, "conv3x3_wide": 3699, "conv3x3_narrow": 108,
+                      "conv3x3_int8": 0, "conv3x3_int8_wide": 0, "attention": 562}
+    assert want_c == {"conv3x3": 3383, "conv3x3_wide": 3275, "conv3x3_narrow": 108,
+                      "conv3x3_int8": 424, "conv3x3_int8_wide": 424, "attention": 562}
+    for want in (want_a, want_c):
+        by_kernel = cs.per_kernel(want)
+        assert by_kernel["conv3x3"] == by_kernel["conv3x3_int8"] == 0
+    assert {k: want_a[k] for k in ("conv3x3_wide", "conv3x3_narrow", "conv3x3_int8_wide")} == {
+        "conv3x3_wide": cs.WIDE_LAUNCHES["A"], "conv3x3_narrow": cs.NARROW_LAUNCHES["A"],
+        "conv3x3_int8_wide": cs.INT8_WIDE_LAUNCHES["A"]}
+    assert {k: want_c[k] for k in ("conv3x3_wide", "conv3x3_narrow", "conv3x3_int8_wide")} == {
+        "conv3x3_wide": cs.WIDE_LAUNCHES["C"], "conv3x3_narrow": cs.NARROW_LAUNCHES["C"],
+        "conv3x3_int8_wide": cs.INT8_WIDE_LAUNCHES["C"]}
 
 
 def test_wide_tiles_fit_the_kernel():
@@ -360,3 +385,140 @@ def test_flash_emulation_matches_plain_within_attn_tol(case, first):
     ref = tatt.attention_plain(q, k, v)
     assert got.shape == ref.shape and got.dtype == torch.bfloat16
     cs.check(case, got.float(), ref.float(), cs.ATTN_TOL)
+
+
+# (Cin, Cout) of the flagship stage 3's int8 sites, and a Cin that ends in
+# a half slice of 64 channels
+INT8_WIDTHS = [(128, 128), (256, 128), (256, 256), (512, 256), (512, 512), (1024, 512),
+               (1024, 1024), (2048, 1024), (192, 128)]
+
+
+@pytest.mark.parametrize("cin,cout", INT8_WIDTHS)
+def test_kmajor_int8_weights_read_back_in_kernel_order(cin, cout):
+    """The wgmma int8 kernel reads its K-major weights as 16-byte chunks
+    w_k[((tap * Cout + n) * Cin + 128 s + 16 c) ...] for slice s, output
+    channel n and chunk c, zero-filling chunks past Cin. Read back in that
+    order the layout gives `quantize_weights(w)` exactly."""
+    rng = np.random.default_rng(cin + cout)
+    w = torch.from_numpy(rng.normal(size=(3, 3, cin, cout)).astype(np.float32)).bfloat16()
+    wq, _ = tc3.quantize_weights(w)
+    flat = tc3.kmajor_weights(wq).reshape(-1)
+    nsl = -(-cin // tc3.WIDE_KC[True])
+    tap = torch.arange(9)[:, None, None, None, None]
+    n = torch.arange(cout)[None, :, None, None, None]
+    s = torch.arange(nsl)[None, None, :, None, None]
+    c = torch.arange(8)[None, None, None, :, None]
+    e = torch.arange(16)[None, None, None, None, :]
+    ci = 128 * s + 16 * c + e
+    inside = (128 * s + 16 * c < cin).expand(9, cout, nsl, 8, 16)
+    got = flat[((tap * cout + n) * cin + ci.clamp(max=cin - 1)).reshape(-1)].reshape(inside.shape)
+    got = torch.where(inside, got, torch.zeros((), dtype=torch.int8))
+    want = wq.reshape(9, cin, cout).permute(0, 2, 1)  # [tap, n, ci]
+    want = torch.nn.functional.pad(want, (0, nsl * 128 - cin)).reshape(9, cout, nsl, 8, 16)
+    assert torch.equal(got, want)
+
+
+def _flagship_deep_int8_splits():
+    """The splits over K `wide_config(quant=True)` picks at the flagship's
+    maps: none at stage 3's int8 sites (16 row chunks fill the card, at the
+    256² crop too); 2-8 at the small deep maps of stages 1 and 2."""
+    import chip_smoke as cs
+    from kidney_diffusion_tpu_torch.models.configs import serving_overrides, ultra_res
+
+    served = serving_overrides(ultra_res(0, "v_param"), quant="int8", storage="float8_e4m3fn")
+    unet = served.stage(3).unet
+    for size in (256, 1024):
+        for nb, rows, width, cin, cout in _conv_shapes(unet, size):
+            if tc3.route(cin, cout, quant=True) == "wgmma_int8":
+                assert tc3.wide_config(nb, rows, width, cin, cout, True)[3] == 1
+    splits = set()
+    for n, size in ((1, 64), (2, 256)):
+        for nb, rows, width, cin, cout in _conv_shapes(served.stage(n).unet, size):
+            if tc3.route(cin, cout, quant=True) == "wgmma_int8":
+                k = tc3.wide_config(nb, rows, width, cin, cout, True)[3]
+                if k > 1:
+                    splits.add((k, cin))
+    return sorted(splits)
+
+
+def _conv_shapes(unet, size):
+    """(nb, rows, width, Cin, Cout) of each Conv3x3 of a forward at size x
+    size, by `chip_smoke.conv_shapes`' level rule."""
+    import chip_smoke as cs
+
+    for _, mod, (nb, rows, width, cin), _ in cs.conv_shapes(unet, size):
+        yield nb, rows, width, cin, mod.kernel.shape[3]
+
+
+def test_flagship_int8_splits_are_known():
+    got = _flagship_deep_int8_splits()
+    assert {k for k, _ in got} == {2, 3, 4, 6, 8}
+
+
+@pytest.mark.parametrize("ksplit,cin", [(2, 512), (3, 768), (4, 1024), (6, 768), (6, 1536), (8, 1024),
+                                        (8, 2048), (2, 192)])
+def test_int8_split_k_int32_partials_finish_bit_equal(ksplit, cin):
+    """The wgmma int8 kernel's split over K: each split sums its run of
+    128-channel slices exactly in int32, the finishing kernel adds the
+    int32 partials and dequantizes as float32(acc) * (s_a * s_w), then adds
+    the bias. Emulated here, that is the unsplit exact sum, and the output
+    is bit-equal to `conv3x3_plain(quant=True)` (no tolerance: integer sums
+    are exact and the fp32 steps are the same). The cases are the splits
+    `wide_config(quant=True)` picks at the flagship's deep maps (with the
+    Cin they come with) and a half slice."""
+    assert (ksplit, cin) in _flagship_deep_int8_splits() or cin == 192
+    rng = np.random.default_rng(ksplit * 7 + cin)
+    cout = 8
+    x = torch.from_numpy(rng.normal(size=(2, 4, 5, cin)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy((rng.normal(size=(3, 3, cin, cout)) / (9 * cin) ** 0.5)
+                         .astype(np.float32)).bfloat16()
+    b = torch.from_numpy(rng.normal(size=(cout,)).astype(np.float32))
+    a_max = 1.25 * x.float().abs().amax()
+    want = tc3.conv3x3_plain(x, w, b, quant=True, a_max=a_max)
+    s_a = tc3.activation_scale(x, a_max)
+    wq, s_w = tc3.quantize_weights(w)
+    q = torch.clamp(torch.round(x.float() / s_a), -127, 127).double().permute(0, 3, 1, 2)
+    wk = wq.double().permute(3, 2, 0, 1)
+    nsl = -(-cin // 128)
+    kps = -(-nsl // ksplit)
+    assert (ksplit - 1) * kps < nsl  # no split is empty
+    acc = torch.zeros((2, cout, 4, 5), dtype=torch.int32)
+    for k in range(ksplit):
+        lo, hi = k * kps * 128, min((k + 1) * kps * 128, cin)
+        part = torch.nn.functional.conv2d(q[:, lo:hi], wk[:, lo:hi], padding=1)
+        assert part.abs().max() < 2**31
+        acc += part.to(torch.int32)  # an int32 partial, summed in int32
+    z = acc.permute(0, 2, 3, 1).float() * (s_a * s_w)
+    got = (z + b).to(torch.bfloat16)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["final", "init"])
+@pytest.mark.parametrize("rows,width", [(7, 40), (5, 130), (9, 70), (3, 200)])
+def test_conv3x3_narrow_tile_slots_finish_to_plain_stats(rows, width, kind):
+    """The narrow kernel writes one [sum z, sum z^2] and one [max, min] slot
+    per tile over its valid pixels: 4 x 64 tiles for the final conv,
+    `wide_tile`'s 128-pixel tiles for the init conv. Summed (and max/min'ed)
+    by the wrapper they give the plain stats and ranges, at widths that
+    leave partial tiles. Stats to 1e-4 relative (fp32 sums in another
+    order, as the wide-tile test); ranges exactly."""
+    cin, cout = (64, 3) if kind == "final" else (6, 64)
+    assert tc3.route(cin, cout) == "narrow"
+    rng = np.random.default_rng(rows * width)
+    x = torch.from_numpy(rng.normal(size=(2, rows, width, cin)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(3, 3, cin, cout)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(cout,)).astype(np.float32))
+    _, want, want_rng = tc3.conv3x3(x, w, b, want_stats=True, want_range=True)
+    z = tc3.conv3x3(x, w, None).double()
+    th, tw = tc3.NARROW_OUT_TILE if kind == "final" else tc3.wide_tile(rows, width)
+    tiles = [z[:, y0:y0 + th, x0:x0 + tw] for y0 in range(0, rows, th)
+             for x0 in range(0, width, tw)]
+    assert len(tiles) == -(-rows // th) * -(-width // tw)
+    s = torch.stack([torch.stack([t.sum((1, 2)), (t * t).sum((1, 2))], 1) for t in tiles],
+                    1).sum(1).float()
+    got = tc3.finish_stats(s[:, 0], s[:, 1], rows * width, b)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-3)
+    # range mode 1 (with stats): [max, min] of fp32 z per tile, + bias after
+    hi = torch.stack([t.amax((1, 2)) for t in tiles], 1).amax(1).float() + b
+    lo = torch.stack([t.amin((1, 2)) for t in tiles], 1).amin(1).float() + b
+    assert torch.equal(torch.stack([hi, lo], 1), want_rng)
