@@ -47,7 +47,22 @@ Phases, each printing its own lines and seconds:
    on the WMMA kernel) and per attention layer of every U-Net forward, so
    every such layer of the path ran its kernel. A and C are then run again
    under torch.profiler for their device busy time;
-7. with `--profile` only: requests A and C again stage by stage under
+7. train: the flagship's training half through `Trainer.train_step`, set
+   up as `cli/train_ultra_res.py` sets it up (Adam lr 1e-4, betas (0.9,
+   0.99), eps 1e-8, EMA 0.9999, `max_grad_norm=1.0`, batch 8): first one
+   stage-3 loss and gradient at full width (B=1, the 256² crop of a 1024²
+   image), with weights drawn from --seed with no zero-initialised layer, on
+   the card against the CPU plain path with the same draws (GRAD_TOL,
+   LOSS_TOL; every parameter's gradient finite and non-zero); then, from the
+   trainer's own initial state, five stage-3 steps at B=8 on one batch with
+   fixed draws (finite losses, the last below the
+   first, 5 steps taken, an EMA leaf equal to the warmup formula, each step's
+   launches per kernel equal to the forward's sites at the crop), two stage-1
+   steps at B=8 (finite gradients, launches incl. self-attention), and a
+   save / load of stage 3's state (full, and `ema_only` with `partial=True`)
+   bit-equal; ms per step by CUDA events, the backward's share, peak memory,
+   and device busy time and idle share from a profiled extra step;
+8. with `--profile` only: requests A and C again stage by stage under
    torch.profiler (device busy time, idle share, top kernels).
 
 Then one JSON line with every kernel's numbers, the `nvidia-smi` line, and
@@ -61,16 +76,20 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
+import shutil
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
 from kidney_diffusion_tpu_torch.cascade import Cascade
-from kidney_diffusion_tpu_torch.convert import build_model
+from kidney_diffusion_tpu_torch.convert import build_model, init_stage_params
 from kidney_diffusion_tpu_torch.kernels import _build
 from kidney_diffusion_tpu_torch.kernels import attention as attn_mod
 from kidney_diffusion_tpu_torch.kernels import conv3x3 as conv_mod
@@ -83,6 +102,9 @@ from kidney_diffusion_tpu_torch.models.blocks import (
 from kidney_diffusion_tpu_torch.models.configs import serving_overrides, ultra_res
 from kidney_diffusion_tpu_torch.models.unet import EfficientUNet
 from kidney_diffusion_tpu_torch.tools import probe_int8
+from kidney_diffusion_tpu_torch.train import Trainer
+from kidney_diffusion_tpu_torch.train.optim import ema_decay
+from kidney_diffusion_tpu_torch.utils.checkpoint import flatten
 
 # request A: the shipped serving mix; (stage, sampler steps = U-Net forwards)
 SERVE_A = dict(dpmpp_steps=(25, 25, 0), ddim_steps=(0, 0, 4))
@@ -187,6 +209,15 @@ FORWARD_TOL = (0.25, 2.0**-4)
 # fp8 U-Net differ by 0.105 normwise); max abs err <= the largest value,
 # 2^-3 normwise
 QUANT_FORWARD_TOL = (1.0, 2.0**-3)
+# the train phase's gradient check, card against the CPU plain path at full
+# width: normwise over every parameter's gradient together no looser than
+# FORWARD_TOL's 2^-4 (the forward's one-ulp flips, carried through the
+# backward), and the loss within 2^-5 relative
+GRAD_TOL = 2.0**-4
+LOSS_TOL = 2.0**-5
+# the CLI's training set-up (`cli/train_ultra_res.py:42`, `:61-66`)
+TRAIN_BATCH = 8
+TRAIN_STEPS = {3: 5, 1: 2}
 
 
 def log(msg: str) -> None:
@@ -919,6 +950,278 @@ def phase_serve(cascades, params, gen):
     return launches
 
 
+def random_params(config, n: int, gen) -> dict:
+    """Stage `n`'s fp32 parameters drawn from `gen` on the card with no
+    zero-initialised layer (as `random_flax_params` in the tests): kernels
+    N(0, 1 / fan_in), norm scales 1 + 0.1 N(0, 1), other vectors 0.1 N(0, 1).
+    Flax's zero final conv would zero every gradient upstream of it."""
+    out = {}
+    for name, meta in init_stage_params(config, n, device="meta").items():
+        z = torch.randn(meta.shape, generator=gen, device="cuda")
+        if meta.dim() >= 2:
+            z /= math.sqrt(math.prod(meta.shape[:-1]))
+        elif name.endswith("scale"):
+            z = 1.0 + 0.1 * z
+        else:
+            z *= 0.1
+        out[name] = z
+    return out
+
+
+def crop_config(cfg):
+    """The cascade with stage 3 at the size its training crop gives its
+    U-Net: the shapes of a train step's forward, for `expected_launches`."""
+    return dataclasses.replace(cfg, stages=cfg.stages[:2] + (
+        dataclasses.replace(cfg.stage(3), image_size=cfg.stage(3).random_crop_size),))
+
+
+def train_sites(cfg, n: int) -> dict:
+    """Launches per kernel of one train step of stage `n` (one forward at
+    the training size; the backward launches none). `remat` recomputes every
+    ResnetBlock's two convs in the backward: those count twice."""
+    cfg = crop_config(cfg) if n == 3 else cfg
+    st = cfg.stage(n)
+    want = expected_launches(cfg, ((n, 1),))
+    if st.unet.remat:
+        for name, kernel in conv_sites(st.unet, st.image_size):
+            if re.fullmatch(r"(down\d+_block\d+|mid_block\d|up\d+_block\d+|final_block)\..*",
+                            name):
+                want["conv3x3"] += 1
+                want[{"wgmma": "conv3x3_wide", "narrow": "conv3x3_narrow"}.get(
+                    kernel, "conv3x3")] += kernel != "wmma"
+    return want
+
+
+def train_draws(cfg, gen, batch: int) -> dict:
+    """One set of stage-3 `stage_loss` draws (`Cascade.stage_loss`'s names),
+    made on the card."""
+    size, crop, dev = cfg.stage(3).image_size, cfg.stage(3).random_crop_size, "cuda"
+    return {"times": torch.rand((batch,), generator=gen, device=dev),
+            "noise": torch.randn((batch, crop, crop, 3), generator=gen, device=dev),
+            "crop_ys": torch.randint(0, size - crop + 1, (batch,), generator=gen, device=dev),
+            "crop_xs": torch.randint(0, size - crop + 1, (batch,), generator=gen, device=dev),
+            "aug_times": torch.rand((batch,), generator=gen, device=dev)
+            * cfg.lowres_max_aug_level,
+            "aug_noise": torch.randn((batch, crop, crop, 3), generator=gen, device=dev)}
+
+
+def phase_grad_check(cascade: Cascade, gen, smi: str) -> dict:
+    """One full-width stage-3 loss and gradient (B=1, the 256² crop of a
+    1024² image) through the kernels on the card against the plain path on
+    the CPU, same weights and draws: the loss within LOSS_TOL relative, all
+    gradients together within GRAD_TOL normwise; every parameter's gradient
+    on the card finite and non-zero; the forward's launches those of its
+    sites."""
+    t0 = time.perf_counter()
+    cfg = cascade.config
+    params = random_params(cfg, 3, gen)
+    size = cfg.stage(3).image_size
+    images = torch.rand((1, size, size, 3), generator=gen, device="cuda")
+    draws = train_draws(cfg, gen, 1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        c = cascade if dev == "cuda" else Cascade(cfg, device="cpu")
+        ps = {k: torch.nn.Parameter(v.to(dev)) for k, v in params.items()}
+        t1 = time.perf_counter()
+        zero_launches()
+        loss = c.stage_loss(ps, 3, None, images.to(dev),
+                            draws={k: v.to(dev) for k, v in draws.items()})
+        launches = read_launches()
+        grads = [g.cpu() for g in torch.autograd.grad(loss, list(ps.values()))]
+        out[dev] = (loss.item(), grads, launches, time.perf_counter() - t1)
+        del ps, loss
+    names = list(params)
+    (l_card, g_card, launches, s_card), (l_cpu, g_cpu, _, s_cpu) = out["cuda"], out["cpu"]
+    want = train_sites(cfg, 3)
+    crop = cfg.stage(3).random_crop_size
+    log(f"[train] grad check, stage 3 ({sum(p.numel() for p in params.values()) / 1e6:.1f}M), "
+        f"B=1, {crop}² crop of {size}²: card {s_card:.1f} s, cpu plain {s_cpu:.1f} s; forward "
+        f"launches {launches} (the sites: {want})")
+    require(launches == want, f"grad check launches {launches} != {want}")
+    bad = [k for k, g in zip(names, g_card) if not (torch.isfinite(g).all() and g.abs().max() > 0)]
+    log(f"[train] parameters with a non-finite or zero gradient on the card: {len(bad)} of "
+        f"{len(names)} {bad[:5]}")
+    require(not bad, f"non-finite or zero gradients: {bad[:5]}")
+    diff2 = sum(((a.double() - b.double()) ** 2).sum().item() for a, b in zip(g_card, g_cpu))
+    ref2 = sum((b.double() ** 2).sum().item() for b in g_cpu)
+    grad_err = math.sqrt(diff2 / ref2)
+    per = sorted(((((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30)).item(), k)
+                  for k, a, b in zip(names, g_card, g_cpu)), reverse=True)
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    log(f"[train] loss card {l_card:.6f} cpu {l_cpu:.6f}: relative err {loss_err:.3e} "
+        f"(tol {LOSS_TOL:.3e}); gradients normwise {grad_err:.3e} (tol {GRAD_TOL:.3e}); "
+        f"per parameter: median {per[len(per) // 2][0]:.3e}, largest "
+        + ", ".join(f"{k} {e:.3e}" for e, k in per[:3]) + f" [{smi}]")
+    require(loss_err <= LOSS_TOL, f"loss card {l_card} vs cpu {l_cpu}")
+    require(grad_err <= GRAD_TOL, f"gradients normwise {grad_err}")
+    log(f"[train] grad check {time.perf_counter() - t0:.1f} s")
+    return dict(loss_rel_err=loss_err, grad_normwise_err=grad_err,
+                grad_per_param_max=per[0][0], card_s=s_card, cpu_s=s_cpu)
+
+
+class PhaseClock:
+    """CUDA events at a `Trainer`'s phase boundaries (its `phase_hook`)."""
+
+    def __init__(self):
+        self.marks = []
+
+    def __call__(self, name: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((name, ev))
+
+    def steps(self):
+        """[(step ms, {phase: ms})] of the steps marked since the last call."""
+        torch.cuda.synchronize()
+        out, cur = [], []
+        for name, ev in self.marks:
+            cur.append((name, ev))
+            if name == "end":
+                phases = {}
+                for (a, ea), (_, eb) in zip(cur, cur[1:]):
+                    phases[a] = phases.get(a, 0.0) + ea.elapsed_time(eb)
+                out.append((cur[0][1].elapsed_time(ev), phases))
+                cur = []
+        self.marks = []
+        return out
+
+
+def train_stage(cascade: Cascade, n: int, gen, smi: str):
+    """TRAIN_STEPS[n] `Trainer.train_step`s of stage n at full width from the
+    trainer's own initial state (Flax's initializers, zero final conv, from
+    a seed drawn from `gen`), batch TRAIN_BATCH of 1024² images, one batch
+    with the same draws every step (the trainer's generator reseeded), then
+    one profiled step. Returns the trainer, the launches of one step and the
+    numbers."""
+    t0 = time.perf_counter()
+    cfg = cascade.config
+    steps = TRAIN_STEPS[n]
+    clock = PhaseClock()
+    seed = int(torch.randint(2**31 - 1, (1,), generator=gen, device="cuda").item())
+    trainer = Trainer(cascade, only_train_unet_number=n, max_grad_norm=1.0, phase_hook=clock,
+                      seed=seed)
+    st = trainer.state(n)
+    size = cfg.stage(3).image_size  # the dataset's patches, for every stage
+    batch = {"images": torch.rand((TRAIN_BATCH, size, size, 3), generator=gen, device="cuda")}
+    want = train_sites(cfg, n)
+    leaf = "init_conv.kernel"
+    losses, launches, walls, norms = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        trainer.generator.manual_seed(seed)  # the same draws every step
+        ema_prev = st.ema_params[leaf].clone()
+        zero_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(trainer.train_step(n, batch))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        launches.append(read_launches())
+        norms.append(trainer.last_grad_norm)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    timed = clock.steps()
+    n_self = sum(isinstance(m, SelfAttention) for m in build_model(cfg.stage(n).unet).modules())
+    log(f"[train] stage {n}: losses {[f'{v:.5f}' for v in losses]}, global grad norms "
+        f"{[f'{v:.4g}' for v in norms]}, launches per step {launches[0]} (the sites: {want}; "
+        f"{n_self} of the attention sites self-attention)")
+    require(all(math.isfinite(v) for v in losses + norms), f"stage {n}: non-finite loss or grads")
+    require(trainer.num_steps_taken(n) == steps, f"{trainer.num_steps_taken(n)} steps taken")
+    require(all(v == want for v in launches), f"stage {n} launches {launches} != {want}")
+    require(min(launches[0][k] for k in ("conv3x3_wide", "conv3x3_narrow", "attention")) > 0,
+            f"stage {n}: a kernel of the path did not launch: {launches[0]}")
+    # the last step's EMA of one leaf: the warmup formula on the step's parameters
+    d = ema_decay(trainer.ema_decay, steps - 1)
+    one_minus = float(torch.tensor(1.0) - torch.tensor(d))
+    expect = ema_prev * d + st.params[leaf].detach() * one_minus
+    ema_err = ((st.ema_params[leaf] - expect).abs().max() / expect.abs().max()).item()
+    log(f"[train] stage {n}: EMA of {leaf} after step {steps}: decay {d:.6f}, max rel err "
+        f"{ema_err:.2e} against e * d + p * (1 - d) (bit-equal "
+        f"{torch.equal(st.ema_params[leaf], expect)})")
+    require(ema_err <= 2.0**-22, f"stage {n}: EMA {ema_err}")
+    if n == 3:
+        require(losses[-1] < losses[0], f"stage 3: loss did not fall on a fixed batch: {losses}")
+    # device busy time and idle share: one more step, profiled
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.generator.manual_seed(seed)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(n, batch)
+        torch.cuda.synchronize()
+    clock.steps()
+    kernels, dev_us = kernel_times(prof)
+    busy = sum(dev_us(e) for e in kernels) / 1e6
+    later = timed[1:] or timed  # the first step builds the allocator's pools
+    step_ms = sum(t for t, _ in later) / len(later)
+    back_ms = sum(p.get("backward", 0.0) for _, p in later) / len(later)
+    fwd_ms = sum(p.get("forward", 0.0) for _, p in later) / len(later)
+    upd_ms = sum(p.get("update", 0.0) for _, p in later) / len(later)
+    wall = sum(walls[1:] or walls) / len(walls[1:] or walls)
+    nums = dict(batch=TRAIN_BATCH, steps=steps, step_ms=step_ms, forward_ms=fwd_ms,
+                backward_ms=back_ms, update_ms=upd_ms, backward_share=back_ms / step_ms,
+                wall_s=wall, busy_s=busy, idle_share=max(0.0, 1 - busy / wall),
+                peak_gib=peak, first_step_ms=timed[0][0], losses=losses)
+    log(f"[train] stage {n} ({smi}): {step_ms:.1f} ms/step [CUDA events, steps 2-{steps}]: "
+        f"forward {fwd_ms:.1f}, backward {back_ms:.1f} ({back_ms / step_ms:.3f} of the step), "
+        f"update {upd_ms:.1f}; first step {timed[0][0]:.1f} ms; wall {wall:.3f} s/step; device "
+        f"busy {busy:.3f} s (profiled step), idle share {nums['idle_share']:.3f}; peak "
+        f"{peak:.2f} GiB")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+        log(f"[train]   {dev_us(e) / 1e3:9.2f} ms {e.count:6d} calls  {e.key[:90]}")
+    log(f"[train] stage {n} {time.perf_counter() - t0:.1f} s")
+    return trainer, launches[0], nums
+
+
+def phase_checkpoint(trainer: Trainer, n: int) -> dict:
+    """`save` then `load` of stage n's state into a fresh trainer: full, then
+    `ema_only` merged with `partial=True` over a perturbed EMA; bit-equal."""
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    log(f"[train] checkpoints under {root}: {shutil.disk_usage(root).free / 1e9:.1f} GB free")
+    nums = {}
+    with tempfile.TemporaryDirectory(prefix="ckpt_smoke_", dir=root) as tmp:
+        back = Trainer(trainer.cascade, only_train_unet_number=n)
+        for label, ema_only in (("full", False), ("ema_only", True)):
+            path = Path(tmp) / label
+            t1 = time.perf_counter()
+            trainer.save(path, ema_only=ema_only)
+            t2 = time.perf_counter()
+            if ema_only:  # something for the merge to restore
+                for v in back.state(n).ema_params.values():
+                    v.zero_()
+                back.state(n).step = 0
+            back.load(path, partial=ema_only)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            got, ref = flatten(back.state(n).tree()), flatten(trainer.state(n).tree())
+            same = got.keys() == ref.keys() and all(torch.equal(got[k], ref[k]) for k in ref)
+            gb = sum(f.stat().st_size for f in path.iterdir()) / 1e9
+            log(f"[train] checkpoint {label}: {gb:.2f} GB, save {t2 - t1:.1f} s, load "
+                f"{t3 - t2:.1f} s, {len(ref)} leaves bit-equal: {same}")
+            require(same, f"checkpoint {label}: the restored state differs")
+            nums[label] = dict(gb=gb, save_s=t2 - t1, load_s=t3 - t2)
+
+            shutil.rmtree(path)
+        del back
+    log(f"[train] checkpoints {time.perf_counter() - t0:.1f} s")
+    return nums
+
+
+def phase_train(cascade: Cascade, gen, smi: str):
+    """The training half of the flagship (see the module docstring)."""
+    t0 = time.perf_counter()
+    nums = {"grad_check": phase_grad_check(cascade, gen, smi)}
+    launches = {}
+    trainer, launches["train_3"], nums["stage3"] = train_stage(cascade, 3, gen, smi)
+    nums["checkpoint"] = phase_checkpoint(trainer, 3)
+    del trainer
+    torch.cuda.empty_cache()
+    trainer, launches["train_1"], nums["stage1"] = train_stage(cascade, 1, gen, smi)
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"[train] {time.perf_counter() - t0:.1f} s")
+    return launches, nums
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -957,6 +1260,11 @@ def main() -> None:
     launches = phase_serve(cascades, params, gen)
     if args.profile:
         phase_profile(cascades, params, gen)
+    params.clear()  # the serving weights; training draws its own
+    torch.cuda.empty_cache()
+    train_launches, train_nums = phase_train(cascade, gen, smi)
+    launches.update(train_launches)
+    log("[train] summary " + json.dumps(dict(train_nums, device=name, nvidia_smi=smi)))
 
     # each kernel's own launches (the WMMA kernel serves no flagship call:
     # 0 on the main path; its rows are held and timed through a forced route)

@@ -9,4 +9,6 @@ the CPU, where every kernel wrapper runs its plain PyTorch version.
 
 from .device import resolve_device
 
+__version__ = "0.1.0"  # the port's own; stored in its checkpoints' metadata
+
 __all__ = ["resolve_device"]

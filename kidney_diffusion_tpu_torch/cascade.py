@@ -1,22 +1,29 @@
-"""Cascade — the Imagen-equivalent, serving half.
+"""Cascade — the Imagen-equivalent.
 
-Port of the sampling half of `kidney_diffusion_tpu/cascade.py`: per-stage
-continuous-time Gaussian diffusion, `sample_stage` (uint8 wire in and out,
-low-res noise augmentation at `lowres_sample_noise_level`, the bf16 weight
-cast, the doubled-batch classifier-free guidance branch, and the DDPM /
-DDIM / DPM-Solver++ samplers) and `sample` across a window of stages.
+Port of `kidney_diffusion_tpu/cascade.py`: per-stage continuous-time
+Gaussian diffusion; `sample_stage` (uint8 wire in and out, low-res noise
+augmentation at `lowres_sample_noise_level`, the bf16 weight cast, the
+doubled-batch classifier-free guidance branch, and the DDPM / DDIM /
+DPM-Solver++ samplers) and `sample` across a window of stages; and the
+training loss `stage_loss` (the stage-size target, the low-res conditioning
+built from the batch with noise augmentation, one random crop for both,
+`cond_images` and the text-conditioning drop).
 
 Parameters are dicts of tensors owned by the caller, keyed by the Flax
 parameter paths (`convert.py`); a `Cascade` holds configs only. Public APIs
 take and return NHWC images in [0, 1]; diffusion runs in [-1, 1].
 
-Not ported yet: training (`stage_loss`), the EDM sampler, `spatial_shard`
-and `output_split`.
+JAX's threefry streams cannot be reproduced in torch: `stage_loss` draws
+from a `torch.Generator` in the order JAX splits its key (time, noise,
+crop, aug, aug-noise, drop), and a `draws` mapping can supply any of them.
+
+Not ported yet: the EDM sampler and loss, `stage_distill_loss`,
+`spatial_shard` and `output_split`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 
@@ -24,6 +31,7 @@ from .convert import Params, build_model, init_stage_params
 from .core.diffusion import (
     NoiseSource,
     ddim_sample_loop,
+    diffusion_loss,
     dpmpp_sample_loop,
     noise_drawer,
     sample_loop,
@@ -44,12 +52,49 @@ def unnormalize_img(x: Tensor) -> Tensor:
     return torch.clamp(x.float() * 0.5 + 0.5, 0.0, 1.0)
 
 
+def linear_resize_weights(n_in: int, n_out: int, device=None) -> Tensor:
+    """(n_in, n_out) fp32 weights of `jax.image.resize(method="linear")`
+    along one axis (`jax._src.image.scale.compute_weight_mat`, antialias on):
+    a triangle kernel at the output pixel centres, widened by n_in / n_out
+    when downsampling, each column normalised to sum 1."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float64) + 0.5) * inv_scale - 0.5
+    dist = (sample[None, :] - torch.arange(n_in, dtype=torch.float64)[:, None]).abs()
+    w = torch.clamp(1.0 - dist / kernel_scale, min=0.0)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w)).float().to(device)
+
+
 def resize_image_to(x: Tensor, size: int, method: str = "nearest") -> Tensor:
-    """Resize an NHWC batch to (size, size) as `jax.image.resize` does;
-    a no-op when already that size."""
-    if method != "nearest":
+    """Resize an NHWC batch to (size, size) as `jax.image.resize` does
+    ("nearest" or "linear", the latter antialiased when downsampling); a
+    no-op when already that size."""
+    h, w = x.shape[1], x.shape[2]
+    if h == size and w == size:
+        return x
+    if method == "nearest":
+        return resize_nearest(x, size, size)
+    if method != "linear":
         raise NotImplementedError(f"resize method {method!r}")
-    return resize_nearest(x, size, size)
+    wh = linear_resize_weights(h, size, x.device)
+    ww = linear_resize_weights(w, size, x.device)
+    return torch.einsum("bhwc,hi,wj->bijc", x.float(), wh, ww)
+
+
+def random_crop_pair(ys: Tensor, xs: Tensor, crop: int, *imgs: Optional[Tensor]) -> tuple:
+    """`_random_crop_pair` with its offsets drawn: image i of every input
+    cropped to rows ys[i]:ys[i]+crop, columns xs[i]:xs[i]+crop (None stays
+    None)."""
+    span = torch.arange(crop, device=ys.device)
+    rows = (ys[:, None] + span)[:, :, None]  # (b, crop, 1)
+    cols = (xs[:, None] + span)[:, None, :]  # (b, 1, crop)
+    items = torch.arange(ys.shape[0], device=ys.device)[:, None, None]
+    return tuple(None if img is None else img[items, rows, cols] for img in imgs)
 
 
 def stage_sampler_steps(val, unet_number: int, num_stages: Optional[int] = None) -> int:
@@ -95,6 +140,97 @@ class Cascade:
                           generator: Optional[torch.Generator] = None) -> Params:
         """Fresh fp32 parameters of stage `unet_number` on this device."""
         return init_stage_params(self.config, unet_number, generator, self.device)
+
+    def stage_loss(
+        self,
+        params: Params,
+        unet_number: int,
+        generator: Optional[torch.Generator],
+        images: Tensor,
+        *,
+        text_embeds: Optional[Tensor] = None,
+        cond_images: Optional[Tensor] = None,
+        draws: Optional[Mapping[str, Tensor]] = None,
+    ) -> Tensor:
+        """Mean diffusion loss of one stage on a batch of [0, 1] images
+        (uint8 [0, 255] accepted) at any size >= the stage size: the target
+        is the batch resized (linear) to the stage size, the low-res
+        conditioning the batch resized (linear) to the previous stage's size
+        and back (nearest), both cropped alike to `random_crop_size`.
+
+        While grad is enabled and `params` require grad, the model is built
+        on them (`nn.Parameter`s, see `build_model(trainable=True)`), so the
+        loss's gradient reaches them. Random values come from `generator`
+        (on this device) in JAX's order; `draws` supplies any of them
+        instead, by name: "times" (B,), "noise" (the target's shape),
+        "crop_ys" and "crop_xs" (B,) int, "aug_times" (B,), "aug_noise" (the
+        low-res conditioning's shape), "drop" (B,) 0/1."""
+        dev = self.device
+        cfg = self.config
+        st = cfg.stage(unet_number)
+        if st.sampler == "edm":
+            raise NotImplementedError("the EDM loss is not ported yet")
+        gd = self.diffusions[unet_number - 1]
+        draws = dict(draws or {})
+
+        images = _img_from_wire(images, dev)
+        b, _, _, c = images.shape
+        size = st.image_size
+        crop = st.random_crop_size
+        out = crop if crop is not None else size
+
+        def draw(name, sample, *args):
+            """`draws[name]` if given, else `sample(*args)` from the generator."""
+            val = draws.pop(name, None)
+            return sample(*args) if val is None else torch.as_tensor(val, device=dev)
+
+        def uniform(scale=1.0):
+            return torch.rand((b,), generator=generator, device=dev) * scale
+
+        def normal(shape):
+            return torch.randn(shape, generator=generator, device=dev)
+
+        def offset():
+            return torch.randint(0, size - crop + 1, (b,), generator=generator, device=dev)
+
+        times = draw("times", uniform)
+        noise = draw("noise", normal, (b, out, out, c))
+
+        x_start = normalize_img(resize_image_to(images, size, "linear"))
+        lowres = None
+        if st.unet.lowres_cond:
+            prev = cfg.stage(unet_number - 1).image_size
+            lowres = normalize_img(resize_image_to(
+                resize_image_to(images, prev, "linear"), size, "nearest"))
+        if crop is not None:
+            ys, xs = draw("crop_ys", offset), draw("crop_xs", offset)
+            x_start, lowres = random_crop_pair(ys, xs, crop, x_start, lowres)
+
+        model_kwargs: Dict[str, Tensor] = {}
+        if lowres is not None:  # noise-conditioning augmentation
+            aug_times = draw("aug_times", uniform, cfg.lowres_max_aug_level)
+            aug_noise = draw("aug_noise", normal, tuple(lowres.shape))
+            model_kwargs["lowres_cond_img"], *_ = self.lowres_diffusion.q_sample(
+                lowres, aug_times, aug_noise)
+            model_kwargs["lowres_noise_times"] = aug_times
+        if st.unet.cond_images_channels:
+            if cond_images is None:
+                raise ValueError(f"stage {unet_number} needs cond_images")
+            model_kwargs["cond_images"] = _img_from_wire(cond_images, dev)
+        if cfg.condition_on_text and st.unet.text_embed_dim is not None:
+            if text_embeds is None:
+                raise ValueError("this cascade is conditioned on text: pass text_embeds")
+            model_kwargs["text_embeds"] = torch.as_tensor(text_embeds, device=dev)
+            model_kwargs["cond_drop_mask"] = draw(
+                "drop", lambda: uniform() < cfg.cond_drop_prob).float()
+        if draws:
+            raise ValueError(f"draws this stage does not make: {sorted(draws)}")
+
+        trainable = torch.is_grad_enabled() and any(p.requires_grad for p in params.values())
+        model = build_model(st.unet, params, trainable=trainable)
+        losses = diffusion_loss(gd, lambda x_t, t: model(x_t, t, **model_kwargs),
+                                x_start, times, noise, objective=st.pred_objective)
+        return losses.mean()
 
     @torch.no_grad()
     def sample_stage(

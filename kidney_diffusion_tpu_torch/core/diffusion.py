@@ -1,6 +1,7 @@
-"""Stage-level sampling loops (serving half of the diffusion engine).
+"""Stage-level diffusion engine: the training loss and the sampling loops.
 
-Port of `kidney_diffusion_tpu/core/diffusion.py`: dynamic / static x0
+Port of `kidney_diffusion_tpu/core/diffusion.py`: `diffusion_loss` (the
+per-example MSE of the noise / v / x_start objectives), dynamic / static x0
 thresholding, the ancestral DDPM step, the RePaint-masked reverse loop with
 resample rounds, and the DDPM, DDIM and DPM-Solver++(2M) loops. The model is
 a `denoise_fn(x_t, times) -> prediction` with guidance and conditioning
@@ -74,6 +75,25 @@ def pred_to_x_start(diffusion: GaussianDiffusion, x_t: Tensor, times: Tensor,
 
 def _threshold(x0, use_dynamic_threshold, percentile):
     return dynamic_threshold(x0, percentile) if use_dynamic_threshold else static_threshold(x0)
+
+
+def diffusion_loss(diffusion: GaussianDiffusion, denoise_fn: DenoiseFn, x_start: Tensor,
+                   times: Tensor, noise: Tensor, *, objective: str = "noise") -> Tensor:
+    """Per-example MSE loss at continuous times, shape (batch,): the model's
+    prediction at x_t = q_sample(x_start, t, noise) against the objective's
+    target (the noise, v = alpha * noise - sigma * x_start, or x_start)."""
+    x_start, noise = x_start.float(), noise.float()
+    x_t, *_ = diffusion.q_sample(x_start, times, noise)
+    pred = denoise_fn(x_t, times).float()
+    if objective == "noise":
+        target = noise
+    elif objective == "v":
+        target = diffusion.calculate_v(x_start, times, noise)
+    elif objective == "x_start":
+        target = x_start
+    else:
+        raise ValueError(f"unknown objective {objective!r}")
+    return torch.mean((pred - target) ** 2, dim=tuple(range(1, x_start.ndim)))
 
 
 def ddpm_step(diffusion: GaussianDiffusion, denoise_fn: DenoiseFn, x_t: Tensor,

@@ -10,6 +10,11 @@ cross-attention has as few as 2 keys.
 kernel (`csrc/attention.cu`) for tensors on the card — every call on the
 card, whatever its shape (the v5e dispatch gate of the JAX module is a TPU
 measurement and is not carried over).
+
+Gradients: JAX has no VJP of its own for attention and differentiates
+`xla_attention`; so while autograd records, `attention` runs the same
+forward inside `AttentionFunction`, whose backward is autograd through
+`attention_plain`, recomputed from the saved q, k, v (TF32 off on the card).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import ctypes
 import torch
 
 from . import _build
+from .conv3x3 import full_fp32
 
 Tensor = torch.Tensor
 
@@ -81,12 +87,36 @@ def attention_cuda(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
     return o
 
 
+class AttentionFunction(torch.autograd.Function):
+    """`attention` under autograd: `launch` (`attention_cuda` on the card,
+    `attention_plain` on the CPU) forward; autograd of `attention_plain`,
+    recomputed from the saved inputs, backward."""
+
+    @staticmethod
+    def forward(ctx, launch, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return launch(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad(), full_fp32(g.device):
+            leaves = [t.detach().requires_grad_() for t in saved]
+            grads = torch.autograd.grad(attention_plain(*leaves), leaves, g)
+        return (None, *grads)
+
+
 def attention(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
     """softmax(q k^T / sqrt(D)) v over (B, N, H, D) tensors (keys may be
     longer than queries). CPU tensors run the plain version; CUDA tensors
-    run the kernel or raise."""
+    run the kernel or raise. While autograd records an input that needs a
+    gradient, the same forward runs inside `AttentionFunction`."""
     if q.device.type == "cpu":
-        return attention_plain(q, k, v)
-    if q.device.type != "cuda":
+        launch = attention_plain
+    elif q.device.type == "cuda":
+        launch = attention_cuda
+    else:
         raise ValueError(f"attention runs on the CPU or a CUDA device, not {q.device}")
-    return attention_cuda(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return AttentionFunction.apply(launch, q, k, v)
+    return launch(q, k, v)

@@ -47,10 +47,21 @@ hand-written kernels serve the card, chosen by `route`, a pure function of
   convs (Cout <= 8), either bias rounding (`narrow`).
 - "wmma" (`csrc/conv3x3.cu`): the rest — ragged widths of other
   configurations, in either mode. No flagship call comes here.
+
+Gradients (`Conv3x3Function`, the counterpart of `_conv3x3_vjp`): while
+autograd records, `conv3x3` runs the same forward (the kernel on the card,
+the plain version on the CPU) inside an autograd function whose backward
+differentiates the plain version on fp32 upcasts of the saved (x, w, b,
+pro), as JAX's `_bwd` differentiates its all-fp32 reference: gradients of
+`out` and `stats` (GroupNorm's statistics feed the next conv's prologue),
+none of the ranges; the int8 mode is straight-through (the backward
+differentiates the exact conv) and `a_max` gets no gradient. There is no
+backward kernel: the recompute runs PyTorch's fp32 conv with TF32 off.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional, Tuple
 
@@ -430,6 +441,55 @@ def conv3x3_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
     return _finish(y, stats, ranges)
 
 
+@contextlib.contextmanager
+def full_fp32(device: torch.device):
+    """fp32 convs and matmuls on the card without TF32 (cuDNN's fp32 convs
+    use it by default), so a recompute computes the function it is defined
+    as, as on the CPU. Nothing to change on the CPU."""
+    if device.type != "cuda":
+        yield
+        return
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+class Conv3x3Function(torch.autograd.Function):
+    """`conv3x3` under autograd. `launch` is its forward (`conv3x3_cuda` on
+    the card, `conv3x3_plain` on the CPU) and `opts` its keyword options;
+    the backward is `_conv3x3_vjp`'s (see the module docstring). Returns
+    the tuple `launch` returns, `(out,)` for a lone output."""
+
+    @staticmethod
+    def forward(ctx, launch, opts, x, w, b, pro, a_max, w_q):
+        outs = launch(x, w, b, pro=pro, a_max=a_max, w_q=w_q, **opts)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        ctx.opts = opts
+        ctx.save_for_backward(x, w, b, pro)
+        if opts["want_range"]:
+            ctx.mark_non_differentiable(outs[-1])
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        need = [t is not None and n for t, n in zip(saved, ctx.needs_input_grad[2:6])]
+        with torch.enable_grad(), full_fp32(saved[0].device):
+            leaves = [None if t is None else t.detach().float().requires_grad_()
+                      for t in saved]
+            ref = conv3x3_plain(leaves[0], leaves[1], leaves[2], pro=leaves[3],
+                                want_stats=ctx.opts["want_stats"], chunks=ctx.opts["chunks"])
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            wrt = [leaf for leaf, n in zip(leaves, need) if n]
+            got = iter(torch.autograd.grad(ref, wrt, [g.float() for g in grads[:len(ref)]])
+                       if wrt else ())
+        out = [next(got).to(t.dtype) if n else None for t, n in zip(saved, need)]
+        return (None, None, *out, None, None)
+
+
 def conv3x3(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
             pro: Optional[Tensor] = None, want_stats: bool = False,
             chunks: int = 0, quant: bool = False, a_max: Optional[Tensor] = None,
@@ -441,11 +501,18 @@ def conv3x3(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
     made once by a caller that reuses the weights.
 
     A tensor on the CPU runs the plain version; a tensor on the card runs
-    the CUDA kernel or raises."""
-    kw = dict(pro=pro, want_stats=want_stats, chunks=chunks, quant=quant, a_max=a_max,
-              want_range=want_range, bias_in_dtype=bias_in_dtype, w_q=w_q)
+    the CUDA kernel or raises. While autograd records an input that needs
+    a gradient, the same forward runs inside `Conv3x3Function`."""
     if x.device.type == "cpu":
-        return conv3x3_plain(x, w, b, **kw)
-    if x.device.type != "cuda":
+        launch = conv3x3_plain
+    elif x.device.type == "cuda":
+        launch = conv3x3_cuda
+    else:
         raise ValueError(f"conv3x3 runs on the CPU or a CUDA device, not {x.device}")
-    return conv3x3_cuda(x, w, b, **kw)
+    opts = dict(want_stats=want_stats, chunks=chunks, quant=quant, want_range=want_range,
+                bias_in_dtype=bias_in_dtype)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, w, b, pro)):
+        outs = Conv3x3Function.apply(launch, opts, x, w, b, pro, a_max, w_q)
+        return outs if len(outs) > 1 else outs[0]
+    return launch(x, w, b, pro=pro, a_max=a_max, w_q=w_q, **opts)

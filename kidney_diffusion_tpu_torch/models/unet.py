@@ -8,7 +8,11 @@ batch-of-row-chunks layout (`spatial_chunks`, applied only when
 H % (chunks * 2**levels) == 0), and the serving options `quant_conv="int8"`
 (w8a8 convs at the `_quant_site` sites, with range-propagated activation
 scales) and `storage_dtype` (block-boundary feature maps and skips stored
-narrow, cast exactly where the JAX forward casts). Submodule and parameter
+narrow, cast exactly where the JAX forward casts). `remat` (training only)
+recomputes every `ResnetBlock` in the backward instead of keeping its
+activations, as `nn.remat(ResnetBlock)` does, through
+`torch.utils.checkpoint` (non-reentrant); it does not change the function.
+Submodule and parameter
 names are the Flax ones, so `state_dict()` keys are the Flax parameter
 paths joined by dots.
 
@@ -24,6 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .blocks import (
     Conv3x3,
@@ -266,10 +271,18 @@ class EfficientUNet(nn.Module):
         def reanchor(y):
             return dynamic_amax(y) if track else None
 
+        remat = cfg.remat and torch.is_grad_enabled()
+
+        def res_block(name, *args, **kw):
+            mod = getattr(self, name)
+            if remat:  # `nn.remat(ResnetBlock)`: recomputed in the backward
+                return checkpoint(mod, *args, use_reentrant=False, **kw)
+            return mod(*args, **kw)
+
         def block(name, y, ya):
             if track:
-                return store(*getattr(self, name)(y, t_cond, chunks=ch, a_max=ya))
-            return store(getattr(self, name)(y, t_cond, chunks=ch))[0], None
+                return store(*res_block(name, y, t_cond, chunks=ch, a_max=ya))
+            return store(res_block(name, y, t_cond, chunks=ch))[0], None
 
         def attn_block(name, y):
             y, _ = store(rechunked(getattr(self, name)(unchunked(y), context)))
@@ -344,9 +357,9 @@ class EfficientUNet(nn.Module):
             xa = bound_max(xa, init_a)
             x = torch.cat([x, init_conv_out], dim=-1)
         if track:
-            x = self.final_block(x, t_cond, chunks=ch, a_max=xa)[0]
+            x = res_block("final_block", x, t_cond, chunks=ch, a_max=xa)[0]
         else:
-            x = self.final_block(x, t_cond, chunks=ch)
+            x = res_block("final_block", x, t_cond, chunks=ch)
         return unchunked(self.final_conv(x, chunks=ch))
 
 
