@@ -47,7 +47,27 @@ Phases, each printing its own lines and seconds:
    on the WMMA kernel) and per attention layer of every U-Net forward, so
    every such layer of the path ran its kernel. A and C are then run again
    under torch.profiler for their device busy time;
-7. train: the flagship's training half through `Trainer.train_step`, set
+7. gigapixel: (G) one whole mag-1 level of `ultra_res(1, "v_param")` at
+   full width, as `cli/sample_ultra_res.py` serves it (int8 + fp8 stage 3,
+   the resident transport) at the serving mix, weights drawn from --seed on
+   the card, request C's patch as the mag-0 image: 64 patches of an 8 x 8
+   grid in 15 waves, stitched into a 6400² canvas. It requires 64 uint8
+   1024² patches with finite U-Net outputs, every overlap band equal to its
+   generated neighbour's pixels, the canvas equal to the patches pasted on
+   the upscaled coarse image, and launches per kernel equal to the layers
+   of every forward (the WMMA kernel exactly at the Cin-9 init convs of
+   stages 2 and 3); it prints the level's wall and patches/s, per stage
+   wall, device span (CUDA events around each `sample_stage` call), mean
+   batch and, from its largest chunk run again, device busy time (profiled),
+   idle share and the cost of building the stage model per call; host
+   seconds in prep and model building, the seconds of the synchronous
+   copies of final patches to the host, peak memory. (G') the first four
+   patches on the uint8 wire and on the resident transport from one seed:
+   every chunk's conditioning inputs equal (strips within one count at
+   coarse-fallback pixels). (M2) the mag-2 tissue mask of G's canvas on
+   the card equal to the CPU's, the filter's count, and four mag-2 patches
+   (`all_patches`) from G's weights;
+8. train: the flagship's training half through `Trainer.train_step`, set
    up as `cli/train_ultra_res.py` sets it up (Adam lr 1e-4, betas (0.9,
    0.99), eps 1e-8, EMA 0.9999, `max_grad_norm=1.0`, batch 8): first one
    stage-3 loss and gradient at full width (B=1, the 256² crop of a 1024²
@@ -62,8 +82,8 @@ Phases, each printing its own lines and seconds:
    save / load of stage 3's state (full, and `ema_only` with `partial=True`)
    bit-equal; ms per step by CUDA events, the backward's share, peak memory,
    and device busy time and idle share from a profiled extra step;
-8. with `--profile` only: requests A and C again stage by stage under
-   torch.profiler (device busy time, idle share, top kernels).
+9. with `--profile` only (after serve): requests A and C again stage by
+   stage under torch.profiler (device busy time, idle share, top kernels).
 
 Then one JSON line with every kernel's numbers, the `nvidia-smi` line, and
 last `{"ok": true, "device": {...}}`. Any failed check raises, so the script
@@ -75,6 +95,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -85,10 +106,11 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from kidney_diffusion_tpu_torch.cascade import Cascade
+from kidney_diffusion_tpu_torch.cascade import Cascade, stage_sampler_steps
 from kidney_diffusion_tpu_torch.convert import build_model, init_stage_params
 from kidney_diffusion_tpu_torch.kernels import _build
 from kidney_diffusion_tpu_torch.kernels import attention as attn_mod
@@ -101,6 +123,14 @@ from kidney_diffusion_tpu_torch.models.blocks import (
 )
 from kidney_diffusion_tpu_torch.models.configs import serving_overrides, ultra_res
 from kidney_diffusion_tpu_torch.models.unet import EfficientUNet
+from kidney_diffusion_tpu_torch.ops.image import foreground_mask_for_patches
+from kidney_diffusion_tpu_torch.sample import gigapixel as gp
+from kidney_diffusion_tpu_torch.sample.resident import ResidentEngine
+from kidney_diffusion_tpu_torch.sample.wavefront import (
+    bucket_size,
+    choose_orientation,
+    plan_waves,
+)
 from kidney_diffusion_tpu_torch.tools import probe_int8
 from kidney_diffusion_tpu_torch.train import Trainer
 from kidney_diffusion_tpu_torch.train.optim import ema_decay
@@ -109,6 +139,12 @@ from kidney_diffusion_tpu_torch.utils.checkpoint import flatten
 # request A: the shipped serving mix; (stage, sampler steps = U-Net forwards)
 SERVE_A = dict(dpmpp_steps=(25, 25, 0), ddim_steps=(0, 0, 4))
 FORWARDS_A = ((1, 25), (2, 25), (3, 4))
+
+# request G: one mag-1 level of ultra_res(1, "v_param") as the CLI serves it
+# (resident wire, int8 + fp8 stage 3) at the shipped serving mix
+GIGA = dict(overlap=0.25, inpaint_resample_times=1, max_wave_batch=32, **SERVE_A)
+GIGA_PATCHES = 64  # the whole 8 x 8 grid of a 1024² mag-0 image
+GIGA_WIRE_PATCHES = 4  # G' and M2: the first four patches (row 0)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
@@ -158,6 +194,20 @@ NARROW_CASES = {
     "j_stage1_final_conv": (1, 64, 64, 256, 3, 0, False, False, False, False),
     "k_stage2_init_conv_bias_in_dtype": (1, 256, 256, 6, 128, 0, False, False, False, True),
     "l_stage2_final_conv": (1, 256, 256, 128, 3, 0, False, False, False, False),
+    # stage 1 of a magnification level above 0 (Cin = 3 + 3 cond) in the
+    # level's wave chunks of up to 8
+    "v_stage1_init_conv_cin6_batch8_bias_in_dtype": (8, 64, 64, 6, 256, 0, False, False, False,
+                                                     True),
+}
+# the init convs of stages 2 and 3 at magnification levels above 0 (Cin = 3
+# + 3 low-res + 3 cond = 9, over the narrow kernel's 8): the WMMA kernel, as
+# the gigapixel level calls them (stage 3 int8-served, so with its range);
+# same tuple as NARROW_CASES
+WMMA_CASES = {
+    "t_stage3_init_conv_cin9_range": (16, 64, 1024, 9, 128, 16, False, False, True, False),
+    "u_stage2_init_conv_cin9_bias_in_dtype": (1, 256, 256, 9, 128, 0, False, False, False, True),
+    "w_stage2_init_conv_cin9_batch8_bias_in_dtype": (8, 256, 256, 9, 128, 0, False, False, False,
+                                                     True),
 }
 # bf16 mode, serving-path options on the shapes above, and what the narrow
 # kernel can get wrong (prologue, stats and range at ragged maps: partial
@@ -170,6 +220,7 @@ CONV_OPTION_CASES = {
     "n_final_bias_in_dtype_range": (2, 9, 70, 64, 5, 0, False, False, True, True),
     "o_init_ragged_pro_stats_range": (4, 5, 37, 3, 256, 2, True, True, True, False),
     "p_init_cin8_pro_stats_range": (2, 9, 20, 8, 192, 0, True, True, True, False),
+    "t_stage3_init_conv_cin9": (16, 64, 1024, 9, 128, 16, False, False, False, False),
 }
 # int8 mode at the flagship stage-3 shapes; a_max "bound" = a given bound,
 # None = dynamic amax: name: (batch*chunks, rows, width, cin, cout, chunks,
@@ -401,30 +452,34 @@ def phase_kernels(gen):
             "conv3x3_int8": [], "attention": []}
     conv_row = {"wgmma": "conv3x3_wide", "narrow": "conv3x3_narrow", "wmma": "conv3x3"}
 
-    bf16_cases = {k: v + (False, False) for k, v in CONV_CASES.items()}
+    # the WMMA kernel's own cases first: its row's head is the gigapixel path's shape
+    bf16_cases = dict(WMMA_CASES)
+    bf16_cases.update({k: v + (False, False) for k, v in CONV_CASES.items()})
     bf16_cases.update(NARROW_CASES)
-    timed = set(CONV_CASES) | set(NARROW_CASES)
+    timed = set(WMMA_CASES) | set(CONV_CASES) | set(NARROW_CASES)
     bf16_cases.update(CONV_OPTION_CASES)
     for case, (nb, h, w, cin, cout, chunks, pro, stats, rng_, bid) in bf16_cases.items():
         x, wk, b, p = conv_inputs(gen, nb, h, w, cin, cout, chunks, pro)
         kw = dict(pro=p, want_stats=stats, chunks=chunks, want_range=rng_, bias_in_dtype=bid)
         kernel = conv_mod.route(cin, cout, False, bid)
+        forced = kernel != "wmma"  # else the route is the WMMA kernel already
         got = conv_mod.conv3x3(x, wk, b, **kw)
         ref = conv_mod.conv3x3_plain(x, wk, b, **kw)
         with wmma_only():  # the same call on the WMMA kernel, held to the same tolerances
-            got_wmma = conv_mod.conv3x3(x, wk, b, **kw)
+            got_wmma = conv_mod.conv3x3(x, wk, b, **kw) if forced else got
         torch.cuda.synchronize()
         log(f"[kernels] conv3x3 {case}: x {tuple(x.shape)} -> {cout}, chunks={chunks}, "
             f"prologue={pro}, stats={stats}, range={rng_}, bias_in_dtype={bid}, kernel={kernel}")
         err = check_conv("", got, ref, stats, rng_)
-        wmma_err = check_conv(" (WMMA kernel)", got_wmma, ref, stats, rng_)
+        wmma_err = check_conv(" (WMMA kernel)", got_wmma, ref, stats, rng_) if forced else err
         row = dict(case=case, kernel=kernel, max_abs_err=err)
         wmma_row = dict(case=case, kernel="wmma", max_abs_err=wmma_err, forced_route=True)
         if case in timed:
             iters = 20 if nb * h * w * cin * cout > 1e9 else 50
             ms = time_ms(lambda: conv_mod.conv3x3_cuda(x, wk, b, **kw), iters)
             with wmma_only():
-                wmma_ms = time_ms(lambda: conv_mod.conv3x3_cuda(x, wk, b, **kw), iters)
+                wmma_ms = (time_ms(lambda: conv_mod.conv3x3_cuda(x, wk, b, **kw), iters)
+                           if forced else ms)
             row.update(ms=ms, wmma_ms=wmma_ms)
             if kernel == "wgmma":  # its tiling
                 row["tile_h"], row["tile_w"], row["bn"], row["ksplit"] = conv_mod.wide_config(
@@ -451,7 +506,8 @@ def phase_kernels(gen):
                              if k in ("plain_ms", "library_ms", "bound_ms", "bound_by")},
                             ms=wmma_ms)
         rows[conv_row[kernel]].append(row)
-        rows["conv3x3"].append(wmma_row)
+        if forced:
+            rows["conv3x3"].append(wmma_row)
 
     for case, (nb, h, w, cin, cout, chunks, pro, stats, rng_, am) in INT8_CASES.items():
         x, wk, b, p = conv_inputs(gen, nb, h, w, cin, cout, chunks, pro)
@@ -904,7 +960,7 @@ def serve_request(label, cascade, params, gen, forwards, **kw):
 def phase_serve(cascades, params, gen):
     t0 = time.perf_counter()
     cfg = cascades["A"].config
-    launches, walls, peaks, stages = {}, {}, {}, {}
+    launches, walls, peaks, stages, outs = {}, {}, {}, {}, {}
     for label in ("A", "C"):
         # (A) one 1024² patch at the shipped serving mix; (C) the same on the
         # shipped serving overrides: stage 3 on int8 convs with fp8 storage
@@ -913,6 +969,7 @@ def phase_serve(cascades, params, gen):
             output_dtype="uint8", **SERVE_A)
         require(tuple(out.shape) == (1, 1024, 1024, 3) and out.dtype == torch.uint8,
                 f"request {label} output {tuple(out.shape)} {out.dtype}")
+        outs[label] = out[0].cpu().numpy()
         require(min(launches[label][k] for k in ("conv3x3", "attention")) > 0, str(launches))
         if label == "A":
             # (B) stage 1 alone, ancestral loop cut to 8 steps, batch 2
@@ -947,7 +1004,7 @@ def phase_serve(cascades, params, gen):
             f"(profiled rerun), idle share {max(0.0, 1 - busy / walls[label]):.3f}, "
             f"peak {peaks[label]:.2f} GiB")
     log(f"[serve] {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, outs["C"]
 
 
 def random_params(config, n: int, gen) -> dict:
@@ -966,6 +1023,404 @@ def random_params(config, n: int, gen) -> dict:
             z *= 0.1
         out[name] = z
     return out
+
+
+# ---------------------------------------------------------------------------
+# gigapixel: one mag-1 level (G), its transports (G'), the mag-2 filter (M2)
+# ---------------------------------------------------------------------------
+
+
+def level_forwards(cfg, patch_pos):
+    """((stage, U-Net forwards), ...) of one gigapixel level at the GIGA
+    settings: each stage's chunks of the wave plan (`gigapixel._stage_batch`
+    caps) times its sampler steps (one forward a step on DPM++ and DDIM)."""
+    waves = plan_waves(patch_pos, choose_orientation(patch_pos))
+    out = []
+    for n in range(1, cfg.num_stages + 1):
+        cap = gp._stage_batch(cfg.stage(n).image_size, GIGA["max_wave_batch"], None, 1,
+                              n == cfg.num_stages)
+        steps = (stage_sampler_steps(GIGA["dpmpp_steps"], n, cfg.num_stages)
+                 or stage_sampler_steps(GIGA["ddim_steps"], n, cfg.num_stages))
+        out.append((n, steps * sum(-(-len(w) // cap) for w in waves)))
+    return tuple(out)
+
+
+def wmma_sites(cfg, forwards) -> int:
+    """WMMA launches of `forwards`: the bf16 convs `conv3x3.route` leaves to
+    the WMMA kernel (at mag > 0 the Cin-9 init convs of stages 2 and 3)."""
+    return sum(fwd * [k for _, k in conv_sites(cfg.stage(n).unet, cfg.stage(n).image_size)]
+               .count("wmma") for n, fwd in forwards)
+
+
+def check_overlap_bands(label, patches, ori, ov) -> int:
+    """Every patch's band shared with a generated neighbour above it and
+    next to it (in the sweep direction) equals that neighbour's pixels: the
+    masked loop pastes the known pixels. Returns the bands checked."""
+    n = 0
+    for (i, j), p in patches.items():
+        up, side = patches.get((i - 1, j)), patches.get((i, j + ori))
+        if up is not None:
+            require(np.array_equal(p[:ov], up[-ov:]), f"{label}: {(i, j)} top band")
+            n += 1
+        if side is not None:
+            same = (np.array_equal(p[:, -ov:], side[:, :ov]) if ori == 1
+                    else np.array_equal(p[:, :ov], side[:, -ov:]))
+            require(same, f"{label}: {(i, j)} side band")
+            n += 1
+    return n
+
+
+def check_patches(label, patches, pos, ps):
+    require(sorted(patches) == sorted(pos), f"{label}: patches {sorted(patches)[:4]}")
+    require(all(p.shape == (ps, ps, 3) and p.dtype == np.uint8 for p in patches.values()),
+            f"{label}: patch shapes {set((p.shape, p.dtype) for p in patches.values())}")
+
+
+@contextlib.contextmanager
+def instrument_level(cascade, capture=False):
+    """Records of one level on `cascade`: each `sample_stage` call (stage,
+    batch, CUDA events around it; with `capture`, its image inputs on the
+    host), host seconds in `stage_model` and `ResidentEngine.prep_chunk`,
+    non-finite and counted U-Net outputs (a forward hook on each stage
+    model), the engine's copies of final patches to the host (synchronised
+    first, so only the copy is timed), and a metrics hook that synchronises
+    at each stage's last wave for the stage's wall."""
+    rec = dict(calls=[], build_s=0.0, prep_s=0.0, stage_end={}, rerun={}, copies=0, copy_s=0.0,
+               inputs=[], forwards={}, bad=torch.zeros((), dtype=torch.int64, device="cuda"))
+    orig_sample, orig_model = cascade.sample_stage, cascade.stage_model
+    orig_prep, orig_copy = ResidentEngine.prep_chunk, ResidentEngine._copy_finals
+    hooked, handles = set(), []
+
+    def stage_model(params, n):
+        t = time.perf_counter()
+        model = orig_model(params, n)
+        rec["build_s"] += time.perf_counter() - t
+        if id(model) not in hooked:
+            hooked.add(id(model))
+
+            def post(module, args, out, n=n):
+                rec["bad"].add_((~torch.isfinite(out)).sum())
+                rec["forwards"][n] = rec["forwards"].get(n, 0) + 1
+
+            handles.append(model.register_forward_hook(post))
+        return model
+
+    def sample_stage(params, n, noise, **kw):
+        if capture:
+            rec["inputs"].append((n, kw["batch_size"], {
+                k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+                for k, v in kw.items() if k in ("cond_images", "lowres_image", "inpaint_images",
+                                                "inpaint_masks")}))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig_sample(params, n, noise, **kw)
+        end.record()
+        rec["calls"].append((n, kw["batch_size"], start, end))
+        if kw["batch_size"] >= rec["rerun"].get(n, (0,))[0]:  # the largest chunk, for reruns
+            rec["rerun"][n] = (kw["batch_size"], kw)
+        return out
+
+    def prep_chunk(self, *args, **kwargs):
+        t = time.perf_counter()
+        out = orig_prep(self, *args, **kwargs)
+        rec["prep_s"] += time.perf_counter() - t
+        return out
+
+    def copy_finals(self):
+        if self._final_pending:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            orig_copy(self)
+            rec["copy_s"] += time.perf_counter() - t
+            rec["copies"] += 1
+
+    def hook(stage, wave, patches, device_store_entries):
+        if wave == rec["n_waves"] - 1:
+            torch.cuda.synchronize()
+            rec["stage_end"][stage] = time.perf_counter()
+
+    cascade.sample_stage, cascade.stage_model = sample_stage, stage_model
+    ResidentEngine.prep_chunk, ResidentEngine._copy_finals = prep_chunk, copy_finals
+    try:
+        yield rec, hook
+    finally:
+        del cascade.sample_stage, cascade.stage_model
+        ResidentEngine.prep_chunk, ResidentEngine._copy_finals = orig_prep, orig_copy
+        for h in handles:
+            h.remove()
+
+
+def rerun_chunk(cascade, params, n, rec, gen):
+    """The level's largest chunk of stage n again: wall on the level's stage
+    model (as the level ran it; the faster of two runs) and device busy
+    time under torch.profiler; then what building the model on every call
+    would add: `Cascade.stage_model` anew and the quantization of its int8
+    weights (done at their first forward), each synchronised."""
+    bsz, kw = rec["rerun"][n]
+
+    def run():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cascade.sample_stage(params[n - 1], n, gen, **kw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    warm = min(run(), run())
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    kernels, dev_us = kernel_times(prof)
+    busy = sum(dev_us(e) for e in kernels) / 1e6
+    for e in sorted(kernels, key=dev_us, reverse=True)[:4]:
+        log(f"[gigapixel]   stage {n} chunk: {dev_us(e) / 1e3:9.2f} ms {e.count:6d} calls  "
+            f"{e.key[:80]}")
+    t = time.perf_counter()
+    model = cascade.stage_model(params[n - 1], n)
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t
+    st = cascade.config.stage(n)
+    int8 = [model.get_submodule(name) for name, kernel in conv_sites(st.unet, st.image_size)
+            if kernel in ("wgmma_int8", "wmma_int8")]
+    t = time.perf_counter()
+    for mod in int8:
+        mod.quantized_weights(mod.kernel.to(mod.dtype))
+    torch.cuda.synchronize()
+    quant = time.perf_counter() - t
+    return dict(batch=bsz, wall_s=warm, busy_s=busy, idle_share=max(0.0, 1 - busy / warm),
+                build_s=build, quantize_s=quant, build_share=(build + quant) / warm)
+
+
+def phase_gigapixel_level(cascade, params, zoomed, gen, smi):
+    """Request G: `generate_high_res_image`'s three calls (get_cond_images,
+    generate_patch_set, stitch_patches) on one mag-1 level, so the patches
+    are kept for the checks."""
+    t0 = time.perf_counter()
+    cfg = cascade.config
+    ps = cfg.stages[-1].image_size
+    _, pos, grid = gp.get_cond_images(zoomed, 1, overlap=GIGA["overlap"], patch_size=ps,
+                                      materialize=False, device="cuda")
+    pos = pos[:GIGA_PATCHES]
+    ori = choose_orientation(pos)
+    waves = plan_waves(pos, ori)
+    forwards = level_forwards(cfg, pos)
+    want = expected_launches(cfg, forwards)
+    log(f"[gigapixel] G: mag 1, {len(pos)} patches of a {grid.num_patches_width}² grid "
+        f"(patch width {grid.patch_width}, stride {grid.patch_dist}), {len(waves)} waves of "
+        f"{[len(w) for w in waves]}, orientation {ori}, forwards {forwards}")
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with instrument_level(cascade) as (rec, hook):
+        rec["n_waves"] = len(waves)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        patches = gp.generate_patch_set(
+            cascade, params, gen, patch_pos=pos, grid=grid, cond_images=None,
+            inpaint_resample_times=GIGA["inpaint_resample_times"],
+            max_wave_batch=GIGA["max_wave_batch"], store_dtype=np.uint8, progress=False,
+            dpmpp_steps=GIGA["dpmpp_steps"], ddim_steps=GIGA["ddim_steps"], wire="resident",
+            zoomed_image=zoomed, metrics_hook=hook)
+        t2 = time.perf_counter()
+        launches = read_launches()
+        canvas = gp.stitch_patches(zoomed, patches, overlap=GIGA["overlap"],
+                                   num_patches_width=grid.num_patches_width, patch_size=ps)
+        t3 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wall = t2 - t1
+    log(f"[gigapixel] G: level {wall:.3f} s ({len(pos) / wall:.4f} patches/s), stitch "
+        f"{t3 - t2:.3f} s, canvas {canvas.shape} {canvas.dtype}, peak {peak:.2f} GiB [{smi}]")
+    full = ps + (grid.num_patches_width - 1) * int(ps * (1 - GIGA["overlap"]))
+    require(canvas.shape == (full, full, 3) and canvas.dtype == np.uint8, f"G canvas {canvas.shape}")
+    check_patches("G", patches, pos, ps)
+    n_fwd = tuple((n, rec["forwards"].get(n, 0)) for n in (1, 2, 3))
+    log(f"[gigapixel] G: unet forwards {n_fwd}, non-finite outputs {rec['bad'].item()}")
+    require(rec["bad"].item() == 0 and n_fwd == forwards, f"G: {rec['bad'].item()}, {n_fwd}")
+    ov = int(GIGA["overlap"] * ps)
+    bands = check_overlap_bands("G", patches, ori, ov)
+    log(f"[gigapixel] G: {bands} overlap bands of {ov} px equal their generated neighbour's pixels")
+    # the canvas: each patch pasted (the bands agree, so the order does not
+    # matter), the upscaled coarse image elsewhere
+    covered = np.zeros(canvas.shape[:2], bool)
+    pd = int(ps * (1 - GIGA["overlap"]))
+    for (i, j), p in patches.items():
+        require(np.array_equal(canvas[i * pd:i * pd + ps, j * pd:j * pd + ps], p),
+                f"G: canvas at {(i, j)} is not the patch")
+        covered[i * pd:i * pd + ps, j * pd:j * pd + ps] = True
+    if not covered.all():
+        up = gp.stitch_patches(zoomed, {}, overlap=GIGA["overlap"],
+                               num_patches_width=grid.num_patches_width, patch_size=ps)
+        require(np.array_equal(canvas[~covered], up[~covered]), "G: canvas background")
+    log(f"[gigapixel] G: canvas == the patches pasted onto the upscaled coarse image "
+        f"({covered.mean():.4f} of it covered by patches)")
+    # launches: one per 3x3 conv and attention layer of every forward; the
+    # WMMA kernel exactly at the Cin-9 init convs of stages 2 and 3
+    wmma = per_kernel(launches)["conv3x3"]
+    log(f"[gigapixel] G: launches {launches} (expected {want}); WMMA {wmma} (the Cin-9 init "
+        f"convs: {wmma_sites(cfg, forwards)}), WMMA int8 {per_kernel(launches)['conv3x3_int8']}")
+    require(launches == want, f"G launches {launches} != {want}")
+    require(wmma == wmma_sites(cfg, forwards) > 0 and per_kernel(launches)["conv3x3_int8"] == 0,
+            f"G: WMMA launches {wmma}")
+    # where the time went, per stage
+    starts = {1: t1, 2: rec["stage_end"][1], 3: rec["stage_end"][2]}
+    stages = {}
+    for n in (1, 2, 3):
+        calls = [c for c in rec["calls"] if c[0] == n]
+        span = sum(s.elapsed_time(e) for _, _, s, e in calls) / 1e3
+        st_wall = rec["stage_end"][n] - starts[n]
+        stages[n] = dict(wall_s=st_wall, device_span_s=span, span_share=span / st_wall,
+                         calls=len(calls), mean_batch=sum(b for _, b, _, _ in calls) / len(calls),
+                         patches_per_call=len(pos) / len(calls), forwards=dict(forwards)[n],
+                         **{f"chunk_{k}": v for k, v in rerun_chunk(cascade, params, n, rec,
+                                                                    gen).items()})
+        st = stages[n]
+        log(f"[gigapixel] G stage {n}: wall {st_wall:.3f} s, device span {span:.3f} s (CUDA "
+            f"events around its {len(calls)} sample_stage calls; {st['span_share']:.3f} of the "
+            f"wall), mean batch {st['mean_batch']:.3f} ({st['patches_per_call']:.3f} patches a "
+            f"call), {st['forwards']} forwards; its largest chunk (batch {st['chunk_batch']}) "
+            f"again: wall {st['chunk_wall_s']:.3f} s, device busy {st['chunk_busy_s']:.3f} s, "
+            f"idle share {st['chunk_idle_share']:.3f}; building its model anew: "
+            f"{st['chunk_build_s']:.4f} s + int8 weights {st['chunk_quantize_s']:.4f} s "
+            f"({st['chunk_build_share']:.3f} of the chunk's wall, what each call would add "
+            f"if the model were built per call)")
+    log(f"[gigapixel] G: host seconds in prep {rec['prep_s']:.3f}, in stage_model (one build "
+        f"a stage) {rec['build_s']:.3f}; final patches to the host in {rec['copies']} "
+        f"synchronous copies, {rec['copy_s']:.4f} s (none of it overlaps compute)")
+    log(f"[gigapixel] G {time.perf_counter() - t0:.1f} s")
+    return canvas, launches, dict(
+        patches=len(pos), wall_s=wall, patches_per_s=len(pos) / wall, stitch_s=t3 - t2,
+        peak_gib=peak, prep_s=rec["prep_s"], build_s=rec["build_s"], copies=rec["copies"],
+        copy_s=rec["copy_s"],
+        stages=stages, bands=bands)
+
+
+def phase_gigapixel_wires(cascade, params, zoomed, seed):
+    """Request G': the first patches of the level on the uint8 wire and on
+    the resident transport from one generator seed. Every chunk's
+    conditioning inputs must agree: cond crops, low-res and masks exactly,
+    strips exactly where a generated neighbour gives them and within one
+    count at coarse-fallback pixels."""
+    t0 = time.perf_counter()
+    ps = cascade.config.stages[-1].image_size
+    conds, pos, grid = gp.get_cond_images(zoomed, 1, overlap=GIGA["overlap"], patch_size=ps)
+    conds, pos = conds[:GIGA_WIRE_PATCHES], pos[:GIGA_WIRE_PATCHES]
+    ori = choose_orientation(pos)
+    runs = {}
+    for wire in ("uint8", "resident"):
+        with instrument_level(cascade, capture=True) as (rec, hook):
+            rec["n_waves"] = len(plan_waves(pos, ori))
+            t = time.perf_counter()
+            out = gp.generate_patch_set(
+                cascade, params, torch.Generator(device="cuda").manual_seed(seed), patch_pos=pos,
+                grid=grid, cond_images=conds if wire == "uint8" else None,
+                inpaint_resample_times=GIGA["inpaint_resample_times"],
+                max_wave_batch=GIGA["max_wave_batch"], store_dtype=np.uint8, progress=False,
+                dpmpp_steps=GIGA["dpmpp_steps"], ddim_steps=GIGA["ddim_steps"], wire=wire,
+                zoomed_image=zoomed if wire == "resident" else None, metrics_hook=hook)
+            runs[wire] = (rec["inputs"], out, time.perf_counter() - t)
+        check_patches(f"G' {wire}", out, pos, ps)
+    (host_in, host_out, host_s), (res_in, res_out, res_s) = runs["uint8"], runs["resident"]
+    require(len(host_in) == len(res_in), f"G': {len(host_in)} != {len(res_in)} calls")
+    # the chunks in call order, for the fallback pixels of each
+    chunks = []
+    for n in (1, 2, 3):
+        cap = gp._stage_batch(cascade.config.stage(n).image_size, GIGA["max_wave_batch"], None, 1,
+                              n == 3)
+        for wave in plan_waves(pos, ori):
+            chunks += [(n, wave[k:k + cap]) for k in range(0, len(wave), cap)]
+    n_fallback, n_strip = 0, 0
+    done = {n: [] for n in (1, 2, 3)}
+    for (n, chunk), (hn, hb, h), (rn, rb, r) in zip(chunks, host_in, res_in):
+        require(hn == rn == n and hb == rb == bucket_size(len(chunk)), f"G' call {hn} {rn} {n}")
+        require(sorted(h) == sorted(r), f"G' stage {n}: inputs {sorted(h)} != {sorted(r)}")
+        for k in ("cond_images", "lowres_image", "inpaint_masks"):
+            if k in h:
+                require(h[k].shape == r[k].shape and np.array_equal(h[k], r[k]),
+                        f"G' stage {n} {chunk}: {k} differs")
+        if "inpaint_images" in h:
+            hs = h["inpaint_images"].shape[1]
+            marked = gp.assemble_inpaint_strips(
+                chunk, {p: np.zeros((hs, hs, 3), np.uint8) for p in done[n]},
+                {p: np.full((ps, ps, 3), -1.0, np.float32) for p in chunk}, grid, hs, ori)[0]
+            fallback = gp._pad_to(marked < 0, hb)
+            diff = np.abs(h["inpaint_images"].astype(int) - r["inpaint_images"].astype(int))
+            require(diff[~fallback].max(initial=0) == 0 and diff[fallback].max(initial=0) <= 1,
+                    f"G' stage {n} {chunk}: strips differ by {diff.max()}")
+            n_fallback += int(fallback[:len(chunk)].sum())
+            n_strip += int(h["inpaint_masks"][:len(chunk)].sum()) * 3
+        done[n] += chunk
+    differ = np.mean([np.mean(host_out[p] != res_out[p]) for p in pos])
+    log(f"[gigapixel] G': {len(pos)} patches, {len(host_in)} calls a wire: cond crops, low-res "
+        f"and masks equal; strips equal from generated neighbours ({n_strip} known values), "
+        f"within one count at {n_fallback} coarse-fallback values; uint8 wire {host_s:.3f} s, "
+        f"resident {res_s:.3f} s; {differ:.6f} of the output values differ")
+    log(f"[gigapixel] G' {time.perf_counter() - t0:.1f} s")
+    return dict(uint8_s=host_s, resident_s=res_s, differing_share=float(differ),
+                fallback_values=n_fallback)
+
+
+def phase_gigapixel_mag2(canvas, params, gen):
+    """M2: the mag-2 tissue filter on G's canvas on the card against the
+    CPU, then the first patches of `ultra_res(2, "v_param")` (int8 + fp8
+    overrides) on the resident transport from G's weights (random weights
+    make no tissue: `all_patches`). No stitch: the mag-2 canvas of this level
+    is 40960² x 3."""
+    t0 = time.perf_counter()
+    zoomed = canvas.astype(np.float32) / 255.0
+    t = time.perf_counter()
+    mask = foreground_mask_for_patches(zoomed, device="cuda").cpu().numpy()
+    t_card = time.perf_counter() - t
+    t = time.perf_counter()
+    mask_cpu = foreground_mask_for_patches(zoomed, device="cpu").numpy()
+    t_cpu = time.perf_counter() - t
+    require(np.array_equal(mask, mask_cpu), "M2: the card's tissue mask differs from the CPU's")
+    cfg = serving_overrides(ultra_res(2, "v_param"), quant="int8", storage="float8_e4m3fn")
+    ps = cfg.stages[-1].image_size
+    grid2 = gp.GridSpec.build(zoomed.shape[1], 2, GIGA["overlap"], patch_size=ps)
+    keep = gp.tissue_patch_filter(zoomed, grid2, device="cuda")
+    log(f"[gigapixel] M2: tissue mask {mask.shape} on the card ({t_card:.3f} s) == on the CPU "
+        f"({t_cpu:.3f} s), {mask.mean():.6f} foreground; tissue_patch_filter keeps {len(keep)} "
+        f"of {grid2.num_patches_width ** 2} patches")
+    for n in (1, 2, 3):
+        shapes = {k: tuple(v.shape) for k, v in init_stage_params(cfg, n, device="meta").items()}
+        require(shapes == {k: tuple(v.shape) for k, v in params[n - 1].items()},
+                f"M2: stage {n}'s parameters differ in shape from mag 1's")
+    cascade = Cascade(cfg, device="cuda")
+    _, pos, grid = gp.get_cond_images(zoomed, 2, overlap=GIGA["overlap"], patch_size=ps,
+                                      all_patches=True, materialize=False)
+    pos = pos[:GIGA_WIRE_PATCHES]
+    with instrument_level(cascade) as (rec, hook):
+        rec["n_waves"] = len(plan_waves(pos, choose_orientation(pos)))
+        t = time.perf_counter()
+        patches = gp.generate_patch_set(
+            cascade, params, gen, patch_pos=pos, grid=grid, cond_images=None,
+            inpaint_resample_times=GIGA["inpaint_resample_times"],
+            max_wave_batch=GIGA["max_wave_batch"], store_dtype=np.uint8, progress=False,
+            dpmpp_steps=GIGA["dpmpp_steps"], ddim_steps=GIGA["ddim_steps"], wire="resident",
+            zoomed_image=zoomed, metrics_hook=hook)
+        wall = time.perf_counter() - t
+    check_patches("M2", patches, pos, ps)
+    require(rec["bad"].item() == 0, f"M2: {rec['bad'].item()} non-finite U-Net outputs")
+    bands = check_overlap_bands("M2", patches, choose_orientation(pos), int(GIGA["overlap"] * ps))
+    log(f"[gigapixel] M2: {len(pos)} mag-2 patches of a {grid.num_patches_width}² grid (patch "
+        f"width {grid.patch_width}) in {wall:.3f} s, {bands} overlap bands equal, forwards "
+        f"{rec['forwards']}")
+    log(f"[gigapixel] M2 {time.perf_counter() - t0:.1f} s")
+    return dict(mask_card_s=t_card, mask_cpu_s=t_cpu, tissue_patches=len(keep),
+                grid_patches=grid2.num_patches_width ** 2, patches=len(pos), wall_s=wall)
+
+
+def phase_gigapixel(mag0, gen, seed, smi):
+    """Gigapixel serving from the port (see the module docstring)."""
+    t0 = time.perf_counter()
+    cfg = serving_overrides(ultra_res(1, "v_param"), quant="int8", storage="float8_e4m3fn")
+    cascade = Cascade(cfg, device="cuda")
+    params = [random_params(cfg, n, gen) for n in (1, 2, 3)]
+    zoomed = mag0.astype(np.float32) / 255.0
+    canvas, launches, nums = phase_gigapixel_level(cascade, params, zoomed, gen, smi)
+    nums["wires"] = phase_gigapixel_wires(cascade, params, zoomed, seed)
+    nums["mag2"] = phase_gigapixel_mag2(canvas, params, gen)
+    log(f"[gigapixel] {time.perf_counter() - t0:.1f} s")
+    return launches, nums
 
 
 def crop_config(cfg):
@@ -1249,6 +1704,8 @@ def main() -> None:
         # every layer
         k = ps["final_conv.kernel"]
         k.copy_(torch.randn(k.shape, generator=gen, device=k.device) / (9 * k.shape[2]) ** 0.5)
+    # the loop's names would keep stage 3's weights past `params.clear()`
+    del ps, k
     torch.cuda.synchronize()
     n_params = [sum(p.numel() for p in ps.values()) for ps in params]
     log(f"[init] flagship parameters from seed {args.seed} on the card: "
@@ -1257,23 +1714,30 @@ def main() -> None:
 
     phase_forward(cascade, params[0], gen)
     phase_quant_forward(cascades["C"], params[2], gen)
-    launches = phase_serve(cascades, params, gen)
+    launches, mag0 = phase_serve(cascades, params, gen)
     if args.profile:
         phase_profile(cascades, params, gen)
-    params.clear()  # the serving weights; training draws its own
+    params.clear()  # the serving weights; the gigapixel level and training draw their own
     torch.cuda.empty_cache()
+    launches["G"], giga_nums = phase_gigapixel(mag0, gen, args.seed, smi)
+    log("[gigapixel] summary " + json.dumps(dict(giga_nums, device=name, nvidia_smi=smi)))
+    gc.collect()  # the level's records and hooked models hold closures (cycles)
+    torch.cuda.empty_cache()
+    log(f"[gigapixel] left allocated after the phase: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     train_launches, train_nums = phase_train(cascade, gen, smi)
     launches.update(train_launches)
     log("[train] summary " + json.dumps(dict(train_nums, device=name, nvidia_smi=smi)))
 
-    # each kernel's own launches (the WMMA kernel serves no flagship call:
-    # 0 on the main path; its rows are held and timed through a forced route)
+    # each kernel's own launches: the WMMA kernel's path is the gigapixel
+    # level (the Cin-9 init convs), its int8 mode has none (held and timed
+    # through a forced route)
     by_kernel = {k: per_kernel(v) for k, v in launches.items()}
     kernels = []
     for kname, source, replaces, path in (
             ("conv3x3_wide", WIDE_SOURCE, CONV_REPLACES, "A"),
             ("conv3x3_narrow", NARROW_SOURCE, CONV_REPLACES, "A"),
-            ("conv3x3", CONV_SOURCE, CONV_REPLACES, "A"),
+            ("conv3x3", CONV_SOURCE, CONV_REPLACES, "G"),
             ("conv3x3_int8_wide", WIDE_SOURCE, CONV_INT8_REPLACES, "C"),
             ("conv3x3_int8", CONV_SOURCE, CONV_INT8_REPLACES, "C"),
             ("attention", ATTN_SOURCE, ATTN_REPLACES, "A")):

@@ -17,8 +17,14 @@ JAX's threefry streams cannot be reproduced in torch: `stage_loss` draws
 from a `torch.Generator` in the order JAX splits its key (time, noise,
 crop, aug, aug-noise, drop), and a `draws` mapping can supply any of them.
 
-Not ported yet: the EDM sampler and loss, `stage_distill_loss`,
-`spatial_shard` and `output_split`.
+`sample_stage` builds its stage's inference model (every parameter cast to
+the compute dtype) on each call, unless the caller passes one from
+`stage_model`: the gigapixel orchestrator builds each stage's model once
+per level and hands it to every wave chunk, the counterpart of the JAX
+package's jit cache, which takes the parameters as arguments.
+
+Not ported yet: the EDM sampler and loss, `stage_distill_loss` and
+`spatial_shard`.
 """
 
 from __future__ import annotations
@@ -232,6 +238,15 @@ class Cascade:
                                 x_start, times, noise, objective=st.pred_objective)
         return losses.mean()
 
+    def stage_model(self, params: Params, unet_number: int):
+        """The inference U-Net of stage `unet_number` on `params`, every
+        parameter cast to the compute dtype on this device (int8 weights are
+        quantized at its first forward). Pass it to `sample_stage` as
+        `model` to reuse it across calls with the same parameters."""
+        unet = self.config.stage(unet_number).unet
+        return build_model(unet, {k: v.to(device=self.device, dtype=unet.compute_dtype)
+                                  for k, v in params.items()})
+
     @torch.no_grad()
     def sample_stage(
         self,
@@ -252,12 +267,17 @@ class Cascade:
         ddim_eta: float = 0.0,
         dpmpp_steps: int = 0,
         output_dtype: Optional[str] = None,
+        output_split: bool = False,
+        model=None,
     ) -> Tensor:
         """Sample one stage. `lowres_image` is the previous stage's [0, 1]
         output at any size; image inputs may be uint8 [0, 255] or float.
         Returns [0, 1] images at this stage's size, or uint8 [0, 255] with
-        `output_dtype="uint8"`. `noise` is a `torch.Generator` on this
-        device or a callable `draw(shape)` (see `core.diffusion`)."""
+        `output_dtype="uint8"`; with `output_split=True` a tuple of
+        `batch_size` per-image tensors (views of one batch) instead.
+        `noise` is a `torch.Generator` on this device or a callable
+        `draw(shape)` (see `core.diffusion`). `model`: this stage's model
+        from `stage_model(params, unet_number)`, built on this call if None."""
         dev = self.device
         cfg = self.config
         st = cfg.stage(unet_number)
@@ -273,9 +293,8 @@ class Cascade:
         if text_embeds is not None:
             text_embeds = torch.as_tensor(text_embeds, device=dev)
 
-        # inference-time weight cast: every parameter in the compute dtype
-        dt = st.unet.compute_dtype
-        model = build_model(st.unet, {k: v.to(device=dev, dtype=dt) for k, v in params.items()})
+        if model is None:
+            model = self.stage_model(params, unet_number)
         draw = noise_drawer(noise, dev)
 
         model_kwargs: Dict[str, Tensor] = {}
@@ -334,10 +353,10 @@ class Cascade:
             out = sample_loop(gd, denoise_fn, shape, draw, **loop_kw)
         out = unnormalize_img(out)
         if output_dtype == "uint8":
-            return torch.round(out * 255.0).to(torch.uint8)
-        if output_dtype is not None:
-            return out.to(getattr(torch, output_dtype))
-        return out
+            out = torch.round(out * 255.0).to(torch.uint8)
+        elif output_dtype is not None:
+            out = out.to(getattr(torch, output_dtype))
+        return tuple(out.unbind(0)) if output_split else out
 
     def sample(
         self,

@@ -1,1 +1,1 @@
-"""Utilities of the port (checkpoint files)."""
+"""Utilities of the port (checkpoint files, image output)."""
