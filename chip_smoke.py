@@ -9,7 +9,9 @@ Phases, each printing its own lines and seconds:
 1. device: the card's name, the device count, and `nvidia-smi`'s name and
    power limit;
 2. build: nvcc compiles every kernel of the main path (`kernels/csrc/*.cu`,
-   sm_90a, plain C interface, loaded with ctypes), all in parallel;
+   sm_90a, plain C interface, loaded with ctypes), all in parallel, and
+   prints each kernel's registers and spills (the narrow init conv's 16
+   instantiations, one per Cin, must not spill);
 3. kernels: each kernel's wrapper on card tensors at the flagship shapes,
    held against its plain PyTorch version on the same inputs with the
    stated tolerances, and timed beside the plain version and one PyTorch
@@ -17,8 +19,9 @@ Phases, each printing its own lines and seconds:
    captured in a CUDA graph and replayed, timed by CUDA events; the
    wrapper's eager time, host launch cost included, is printed beside it):
    conv3x3 in bf16 on the kernel `conv3x3.route` picks (the wgmma kernel
-   for the wide convs, the narrow kernel for the init and final convs),
-   each case also on the WMMA kernel through a forced route (held against
+   for the wide convs, the narrow kernel for the init convs, Cin 3-12 as
+   the served configs call them, and the final convs), each case also on
+   the WMMA kernel through a forced route (held against
    the plain version there too, and timed), with its range epilogue and
    bf16-bias rounding; in its int8 mode on the wgmma int8 kernel, each case
    also on the WMMA int8 mode and, as a bf16 reference (not a library
@@ -33,7 +36,9 @@ Phases, each printing its own lines and seconds:
    the full-width stage-3 U-Net with the int8 + fp8 serving overrides at
    the 256² training crop, the same way, with the spreads of its exact and
    int8-only variants (and of the int8 + fp8 forward with every conv on
-   the WMMA kernel) beside it;
+   the WMMA kernel) beside it, and once more with float8_e5m2 storage
+   (after a check that the card's e5m2 cast and amax equal the CPU's),
+   held to its own stated tolerance;
 6. serve: the flagship `ultra_res(0, "v_param")` cascade at full width,
    weights made on the card from --seed, answers (A) one 1024² patch at the
    shipped serving mix dpmpp_steps=(25, 25, 0), ddim_steps=(0, 0, 4),
@@ -55,8 +60,8 @@ Phases, each printing its own lines and seconds:
    1024² patches with finite U-Net outputs, every overlap band equal to its
    generated neighbour's pixels, the canvas equal to the patches pasted on
    the upscaled coarse image, and launches per kernel equal to the layers
-   of every forward (the WMMA kernel exactly at the Cin-9 init convs of
-   stages 2 and 3); it prints the level's wall and patches/s, per stage
+   of every forward (none on the WMMA kernel: the Cin-9 init convs of
+   stages 2 and 3 on the narrow kernel); it prints the level's wall and patches/s, per stage
    wall, device span (CUDA events around each `sample_stage` call), mean
    batch and, from its largest chunk run again, device busy time (profiled),
    idle share and the cost of building the stage model per call; host
@@ -120,9 +125,10 @@ from kidney_diffusion_tpu_torch.models.blocks import (
     CrossAttention,
     SelfAttention,
     _quant_site,
+    dynamic_amax,
 )
 from kidney_diffusion_tpu_torch.models.configs import serving_overrides, ultra_res
-from kidney_diffusion_tpu_torch.models.unet import EfficientUNet
+from kidney_diffusion_tpu_torch.models.unet import EfficientUNet, cast_storage
 from kidney_diffusion_tpu_torch.ops.image import foreground_mask_for_patches
 from kidney_diffusion_tpu_torch.sample import gigapixel as gp
 from kidney_diffusion_tpu_torch.sample.resident import ResidentEngine
@@ -145,6 +151,11 @@ FORWARDS_A = ((1, 25), (2, 25), (3, 4))
 GIGA = dict(overlap=0.25, inpaint_resample_times=1, max_wave_batch=32, **SERVE_A)
 GIGA_PATCHES = 64  # the whole 8 x 8 grid of a 1024² mag-0 image
 GIGA_WIRE_PATCHES = 4  # G' and M2: the first four patches (row 0)
+# G's launches of the narrow kernel (every init and final conv of its 1006
+# forwards: 1381 of Cin 6 and Cout 3, 631 Cin-9 init convs of stages 2-3)
+# and of the WMMA kernel (none: no site of a served config is ragged)
+GIGA_NARROW_LAUNCHES = 2012
+GIGA_WMMA_LAUNCHES = 0
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
@@ -183,9 +194,9 @@ CONV_CASES = {
     "h_deep_4x4_1024": (2, 4, 4, 1024, 1024, 0, False, False),
     "i_stage1_skip_concat_8x8": (2, 8, 8, 2048, 1024, 0, True, True),
 }
-# the narrow ends of the flagship (the narrow kernel), as the U-Nets call
-# them: name: (batch*chunks, rows, width, cin, cout, chunks, prologue,
-# stats, range, bias_in_dtype)
+# the narrow ends (the narrow kernel), as the U-Nets call them: name:
+# (batch*chunks, rows, width, cin, cout, chunks, prologue, stats, range,
+# bias_in_dtype)
 NARROW_CASES = {
     "d_stage3_final_conv": (16, 64, 1024, 128, 3, 16, False, False, False, False),
     "b_stage3_init_conv": (16, 64, 1024, 6, 128, 16, False, False, False, False),
@@ -198,17 +209,26 @@ NARROW_CASES = {
     # level's wave chunks of up to 8
     "v_stage1_init_conv_cin6_batch8_bias_in_dtype": (8, 64, 64, 6, 256, 0, False, False, False,
                                                      True),
-}
-# the init convs of stages 2 and 3 at magnification levels above 0 (Cin = 3
-# + 3 low-res + 3 cond = 9, over the narrow kernel's 8): the WMMA kernel, as
-# the gigapixel level calls them (stage 3 int8-served, so with its range);
-# same tuple as NARROW_CASES
-WMMA_CASES = {
+    # the init convs of stages 2 and 3 at magnification levels above 0 (Cin
+    # = 3 + 3 low-res + 3 cond = 9), as the gigapixel level calls them
+    # (stage 3 int8-served, so with its range)
     "t_stage3_init_conv_cin9_range": (16, 64, 1024, 9, 128, 16, False, False, True, False),
     "u_stage2_init_conv_cin9_bias_in_dtype": (1, 256, 256, 9, 128, 0, False, False, False, True),
     "w_stage2_init_conv_cin9_batch8_bias_in_dtype": (8, 256, 256, 9, 128, 0, False, False, False,
                                                      True),
+    # v2 at mag > 0 (6 cond channels: Cin 12 at stages 2-3, 9 at stage 1)
+    # and patch_conditioned (a 4-channel labelmap: Cin 10 at stages 2-3)
+    "x_v2_stage2_init_conv_cin12_bias_in_dtype": (1, 256, 256, 12, 128, 0, False, False, False,
+                                                  True),
+    "y_v2_stage3_init_conv_cin12_range": (16, 64, 1024, 12, 128, 16, False, False, True, False),
+    "z_patch_conditioned_stage2_init_conv_cin10_bias_in_dtype": (1, 256, 256, 10, 128, 0, False,
+                                                                 False, False, True),
+    "aa_v2_stage1_init_conv_cin9_batch8_bias_in_dtype": (8, 64, 64, 9, 256, 0, False, False,
+                                                         False, True),
 }
+# the WMMA kernel's row in the kernels line leads with the shape it served
+# on the gigapixel path before the narrow kernel took Cin up to 16
+WMMA_HEAD = "t_stage3_init_conv_cin9_range"
 # bf16 mode, serving-path options on the shapes above, and what the narrow
 # kernel can get wrong (prologue, stats and range at ragged maps: partial
 # tiles, rows not a whole number of 16-byte stores, chunk halos):
@@ -220,8 +240,18 @@ CONV_OPTION_CASES = {
     "n_final_bias_in_dtype_range": (2, 9, 70, 64, 5, 0, False, False, True, True),
     "o_init_ragged_pro_stats_range": (4, 5, 37, 3, 256, 2, True, True, True, False),
     "p_init_cin8_pro_stats_range": (2, 9, 20, 8, 192, 0, True, True, True, False),
+    "o9_init_cin9_ragged_pro_stats_range": (4, 5, 37, 9, 256, 2, True, True, True, False),
+    "p12_init_cin12_pro_stats_range": (2, 9, 20, 12, 192, 0, True, True, True, False),
+    # the range of the staged bf16 output (no stats) on partial tiles and
+    # chunk halos; Cout 512 (tiles of 32 pixels, one block an SM) at Cin 16
+    "o12_init_cin12_ragged_pro_range": (4, 7, 40, 12, 128, 2, True, False, True, False),
+    "r_init_cin16_cout512_range": (2, 6, 40, 16, 512, 0, False, False, True, False),
     "t_stage3_init_conv_cin9": (16, 64, 1024, 9, 128, 16, False, False, False, False),
 }
+# every Cin the narrow init conv takes (one instantiation each), on a small
+# ragged map with prologue, stats and range
+CONV_OPTION_CASES.update({f"q_init_cin{c}_pro_stats_range": (2, 6, 20, c, 64, 0, True, True, True,
+                                                             False) for c in range(1, 17)})
 # int8 mode at the flagship stage-3 shapes; a_max "bound" = a given bound,
 # None = dynamic amax: name: (batch*chunks, rows, width, cin, cout, chunks,
 # prologue, stats, range, a_max)
@@ -260,6 +290,12 @@ FORWARD_TOL = (0.25, 2.0**-4)
 # fp8 U-Net differ by 0.105 normwise); max abs err <= the largest value,
 # 2^-3 normwise
 QUANT_FORWARD_TOL = (1.0, 2.0**-3)
+# the same forward with float8_e5m2 storage: 2 mantissa bits, so each
+# stored map rounds twice as coarsely and a flip moves it twice as far.
+# The JAX package's own jitted and eager runs of the tiny int8 + e5m2 U-Net
+# (chunks 4) differ by 0.189 normwise, 1.8 x their e4m3fn spread (0.105):
+# max abs err <= the largest value, 2^-2 normwise (2 x QUANT_FORWARD_TOL's)
+QUANT_FORWARD_TOL_E5M2 = (1.0, 2.0**-2)
 # the train phase's gradient check, card against the CPU plain path at full
 # width: normwise over every parameter's gradient together no looser than
 # FORWARD_TOL's 2^-4 (the forward's one-ulp flips, carried through the
@@ -401,6 +437,24 @@ def phase_device():
     return name, count, smi
 
 
+def ptxas_kernels(report: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) of each
+    entry function in nvcc's `-Xptxas -v` report."""
+    out, name, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1)), *spills))
+            name = None
+    return out
+
+
 def phase_build():
     t0 = time.perf_counter()
     seconds = _build.build(["conv3x3", "conv3x3_sm90", "conv3x3_narrow", "attention",
@@ -409,6 +463,16 @@ def phase_build():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    # the narrow init conv, one instantiation per Cin: registers and spills
+    init = [(int(re.search(r"conv3x3_narrow_inILi(\d+)E", k).group(1)), r, ss, sl)
+            for k, r, ss, sl in ptxas_kernels(_build.PTXAS_REPORTS.get("conv3x3_narrow", ""))
+            if "conv3x3_narrow_inILi" in k]
+    for cin, regs, ss, sl in sorted(init):
+        log(f"[build] conv3x3_narrow_in<{cin}>: {regs} registers, {ss} bytes spill stores, "
+            f"{sl} bytes spill loads")
+    require(not _build.PTXAS_REPORTS.get("conv3x3_narrow") or len(init) == 16,
+            f"conv3x3_narrow_in instantiations in the report: {sorted(init)}")
+    require(all(ss == sl == 0 for _, _, ss, sl in init), f"narrow init conv spills: {init}")
     # load the libraries through ctypes
     conv_mod._lib(), conv_mod._lib_wide(), conv_mod._lib_narrow(), attn_mod._lib()
     probe_int8._lib()
@@ -452,11 +516,9 @@ def phase_kernels(gen):
             "conv3x3_int8": [], "attention": []}
     conv_row = {"wgmma": "conv3x3_wide", "narrow": "conv3x3_narrow", "wmma": "conv3x3"}
 
-    # the WMMA kernel's own cases first: its row's head is the gigapixel path's shape
-    bf16_cases = dict(WMMA_CASES)
-    bf16_cases.update({k: v + (False, False) for k, v in CONV_CASES.items()})
+    bf16_cases = {k: v + (False, False) for k, v in CONV_CASES.items()}
     bf16_cases.update(NARROW_CASES)
-    timed = set(WMMA_CASES) | set(CONV_CASES) | set(NARROW_CASES)
+    timed = set(CONV_CASES) | set(NARROW_CASES)
     bf16_cases.update(CONV_OPTION_CASES)
     for case, (nb, h, w, cin, cout, chunks, pro, stats, rng_, bid) in bf16_cases.items():
         x, wk, b, p = conv_inputs(gen, nb, h, w, cin, cout, chunks, pro)
@@ -473,6 +535,11 @@ def phase_kernels(gen):
         err = check_conv("", got, ref, stats, rng_)
         wmma_err = check_conv(" (WMMA kernel)", got_wmma, ref, stats, rng_) if forced else err
         row = dict(case=case, kernel=kernel, max_abs_err=err)
+        if kernel == "narrow" and cout > conv_mod.NARROW_MAX_COUT:  # the init conv's launch
+            row.update(conv_mod.narrow_in_plan(cin, cout))
+            row["tile"] = conv_mod.narrow_in_tile(h, w, cout)
+            log(f"  narrow init launch: tile {row['tile']}, {row['smem_bytes']} B shared memory, "
+                f"{row['staging_buffers']} staging buffers, {row['blocks_per_sm']} blocks an SM")
         wmma_row = dict(case=case, kernel="wmma", max_abs_err=wmma_err, forced_route=True)
         if case in timed:
             iters = 20 if nb * h * w * cin * cout > 1e9 else 50
@@ -853,6 +920,44 @@ def phase_quant_forward(cascade: Cascade, params, gen):
         f"{((got - exact).norm() / exact.norm()).item():.3e}; card vs CPU normwise: "
         + ", ".join(f"{k} {v:.3e}" for k, v in spread.items()))
     check("stage-3 int8 + fp8 output", got, ref, QUANT_FORWARD_TOL)
+    # the storage cast and the re-anchor amax in e5m2 on the card equal the
+    # CPU's (torch's cast is JAX's rule, held on the CPU by the tests), on a
+    # spread of magnitudes with its edges (57344, 61440, inf, NaN); drawn
+    # from a generator of its own, so the run's later draws stay as they were
+    g8 = torch.Generator(device="cuda").manual_seed(8)
+    v = torch.randn((1 << 20,), generator=g8, device="cuda") * torch.exp2(
+        torch.randint(-20, 12, (1 << 20,), generator=g8, device="cuda").float())
+    v[:6] = torch.tensor([57344.0, 61440.0, -61440.0, 2.0**-17, float("inf"), float("nan")])
+    v = v.bfloat16()
+    card, host = cast_storage(v, torch.float8_e5m2), cast_storage(v.cpu(), torch.float8_e5m2)
+    same = torch.equal(card.view(torch.uint8).cpu(), host.view(torch.uint8))
+    amaxes = [(dynamic_amax(a).cpu(), dynamic_amax(a.cpu())) for a in (card[6:], card[:5], card)]
+    amax_same = all(bool((a == b) | (a.isnan() & b.isnan())) for a, b in amaxes)
+    log(f"[forward] e5m2 storage cast of {v.numel()} bf16 values on the card bit-equal to the "
+        f"CPU's: {same}; dynamic_amax equal: {amax_same} {[a.item() for a, _ in amaxes]}")
+    require(same and amax_same, "e5m2 cast or amax differs between the card and the CPU")
+    # the same forward with float8_e5m2 storage (the CLIs' other storage
+    # choice), and with e5m2 storage alone (bf16 convs): where the spread
+    # comes from
+    e5m2 = dataclasses.replace(unet, storage_dtype="float8_e5m2")
+    with torch.no_grad():
+        zero_launches()
+        got5 = build_model(e5m2, bf16)(x, t, **kw).float().cpu()
+        launches5 = read_launches()
+        t1 = time.perf_counter()
+        ref5 = build_model(e5m2, cpu_bf16)(x.cpu(), t.cpu(), **cpu_kw).float()
+        t_cpu5 = time.perf_counter() - t1
+        bf16_e5m2 = dataclasses.replace(e5m2, quant_conv=None)
+        g = build_model(bf16_e5m2, bf16)(x, t, **kw).float().cpu()
+        r = build_model(bf16_e5m2, cpu_bf16)(x.cpu(), t.cpu(), **cpu_kw).float()
+    spread5 = {"e5m2 storage alone": ((g - r).norm() / r.norm()).item(),
+               "int8 + e5m2": ((got5 - ref5).norm() / ref5.norm()).item()}
+    log(f"[forward] stage 3 int8 + fp8 e5m2 storage: launches {launches5}, cpu plain "
+        f"{t_cpu5:.1f} s; card vs CPU normwise: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in spread5.items())
+        + f" (int8 + e4m3fn {spread['int8 + fp8']:.3e})")
+    require(launches5 == want, str((launches5, want)))
+    check("stage-3 int8 + fp8 e5m2 output", got5, ref5, QUANT_FORWARD_TOL_E5M2)
     log(f"[forward] {time.perf_counter() - t0:.1f} s")
 
 
@@ -1047,7 +1152,7 @@ def level_forwards(cfg, patch_pos):
 
 def wmma_sites(cfg, forwards) -> int:
     """WMMA launches of `forwards`: the bf16 convs `conv3x3.route` leaves to
-    the WMMA kernel (at mag > 0 the Cin-9 init convs of stages 2 and 3)."""
+    the WMMA kernel (none at the served configs' widths)."""
     return sum(fwd * [k for _, k in conv_sites(cfg.stage(n).unet, cfg.stage(n).image_size)]
                .count("wmma") for n, fwd in forwards)
 
@@ -1252,14 +1357,17 @@ def phase_gigapixel_level(cascade, params, zoomed, gen, smi):
         require(np.array_equal(canvas[~covered], up[~covered]), "G: canvas background")
     log(f"[gigapixel] G: canvas == the patches pasted onto the upscaled coarse image "
         f"({covered.mean():.4f} of it covered by patches)")
-    # launches: one per 3x3 conv and attention layer of every forward; the
-    # WMMA kernel exactly at the Cin-9 init convs of stages 2 and 3
+    # launches: one per 3x3 conv and attention layer of every forward; none
+    # on the WMMA kernel, every init conv (Cin 6 and 9) on the narrow one
     wmma = per_kernel(launches)["conv3x3"]
-    log(f"[gigapixel] G: launches {launches} (expected {want}); WMMA {wmma} (the Cin-9 init "
-        f"convs: {wmma_sites(cfg, forwards)}), WMMA int8 {per_kernel(launches)['conv3x3_int8']}")
+    log(f"[gigapixel] G: launches {launches} (expected {want}); narrow "
+        f"{launches['conv3x3_narrow']} (required {GIGA_NARROW_LAUNCHES}), WMMA {wmma} (required "
+        f"{GIGA_WMMA_LAUNCHES}), WMMA int8 {per_kernel(launches)['conv3x3_int8']}")
     require(launches == want, f"G launches {launches} != {want}")
-    require(wmma == wmma_sites(cfg, forwards) > 0 and per_kernel(launches)["conv3x3_int8"] == 0,
-            f"G: WMMA launches {wmma}")
+    require(wmma == wmma_sites(cfg, forwards) == GIGA_WMMA_LAUNCHES
+            and per_kernel(launches)["conv3x3_int8"] == 0, f"G: WMMA launches {wmma}")
+    require(launches["conv3x3_narrow"] == GIGA_NARROW_LAUNCHES,
+            f"G: narrow launches {launches['conv3x3_narrow']}")
     # where the time went, per stage
     starts = {1: t1, 2: rec["stage_end"][1], 3: rec["stage_end"][2]}
     stages = {}
@@ -1729,9 +1837,10 @@ def main() -> None:
     launches.update(train_launches)
     log("[train] summary " + json.dumps(dict(train_nums, device=name, nvidia_smi=smi)))
 
-    # each kernel's own launches: the WMMA kernel's path is the gigapixel
-    # level (the Cin-9 init convs), its int8 mode has none (held and timed
-    # through a forced route)
+    # each kernel's own launches: the WMMA kernel's bf16 and int8 modes have
+    # none on a served path (held and timed through a forced route; its
+    # bf16 count is G's, the path it served before the narrow kernel took
+    # Cin up to 16)
     by_kernel = {k: per_kernel(v) for k, v in launches.items()}
     kernels = []
     for kname, source, replaces, path in (
@@ -1742,8 +1851,10 @@ def main() -> None:
             ("conv3x3_int8", CONV_SOURCE, CONV_INT8_REPLACES, "C"),
             ("attention", ATTN_SOURCE, ATTN_REPLACES, "A")):
         cases = rows[kname]
-        # the first timed case is the main path's heaviest shape for the kernel
-        head = next(c for c in cases if "ms" in c)
+        # the first timed case is the main path's heaviest shape for the
+        # kernel; the WMMA kernel's is WMMA_HEAD
+        head = next(c for c in cases if "ms" in c and (kname != "conv3x3"
+                                                        or c["case"] == WMMA_HEAD))
         kernels.append(dict(
             name=kname, route="cuda", source=source, replaces=replaces,
             launches=by_kernel[path][kname], max_abs_err=max(c["max_abs_err"] for c in cases),

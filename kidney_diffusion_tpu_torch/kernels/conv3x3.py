@@ -43,10 +43,12 @@ hand-written kernels serve the card, chosen by `route`, a pure function of
   deep maps (`wide_config`); the int8 mode takes its weights K-major
   (`kmajor_weights`, laid out once per weight tensor) and quantizes the
   input while staging it.
-- "narrow" (`csrc/conv3x3_narrow.cu`): bf16 init convs (Cin <= 8) and final
-  convs (Cout <= 8), either bias rounding (`narrow`).
-- "wmma" (`csrc/conv3x3.cu`): the rest — ragged widths of other
-  configurations, in either mode. No flagship call comes here.
+- "narrow" (`csrc/conv3x3_narrow.cu`): bf16 init convs (Cin <= 16: 3 and 6
+  on the flagship, 9, 10 and 12 at the conditioned stages) and final convs
+  (Cout <= 8), either bias rounding (`narrow`).
+- "wmma" (`csrc/conv3x3.cu`): the rest — ragged widths (Cout not a
+  multiple of 64, int8 at ragged widths, Cin > 16), in either mode. No call
+  of a served configuration comes here.
 
 Gradients (`Conv3x3Function`, the counterpart of `_conv3x3_vjp`): while
 autograd records, `conv3x3` runs the same forward (the kernel on the card,
@@ -98,7 +100,12 @@ WIDE_KC = {False: 64, True: 128}
 # columns) and the widths each of its two kernels takes
 NARROW_OUT_TILE = (4, 64)
 NARROW_MAX_COUT, NARROW_OUT_MAX_CIN = 8, 256
-NARROW_MAX_CIN, NARROW_IN_MAX_COUT = 8, 512
+NARROW_MAX_CIN, NARROW_IN_MAX_COUT = 16, 512
+# the init conv's tiles (rows, columns) by pixels a tile (128 / `narrow_in_groups`),
+# columns a power of two, the halo'd patch at most 264 pixels; in order of
+# preference at an equal tile count (smaller patch first)
+NARROW_IN_TILES = {128: WIDE_TILES, 64: ((4, 16), (8, 8), (2, 32), (1, 64)),
+                   32: ((2, 16), (4, 8), (1, 32))}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -221,7 +228,7 @@ def tile_w(width: int) -> int:
 
 def narrow(cin: int, cout: int) -> bool:
     """Whether the narrow kernel takes a bf16 (Cin, Cout) call: a final conv
-    (Cout <= 8, Cin a multiple of 64 up to 256) or an init conv (Cin <= 8,
+    (Cout <= 8, Cin a multiple of 64 up to 256) or an init conv (Cin <= 16,
     Cout a multiple of 64 up to 512)."""
     return ((cout <= NARROW_MAX_COUT and cin % 64 == 0 and 64 <= cin <= NARROW_OUT_MAX_CIN)
             or (cin <= NARROW_MAX_CIN and cout % 64 == 0 and 64 <= cout <= NARROW_IN_MAX_COUT))
@@ -241,14 +248,32 @@ def route(cin: int, cout: int, quant: bool = False, bias_in_dtype: bool = False)
     return "wgmma" if wide and not bias_in_dtype else "wmma"
 
 
-def wide_tile(rows: int, width: int, pixels: int = 128) -> Tuple[int, int]:
-    """(rows, columns) of the wgmma kernel's tile of `pixels` (128 or 256)
-    for a map of rows x width: the fewest tiles, then the smallest halo'd
-    patch. A tile stays inside one batch item."""
+def narrow_in_groups(cout: int) -> int:
+    """Channel groups the narrow init conv splits Cout into across its 8
+    warps: a tile is 128 / groups pixels, so its staged output stays at most
+    32 KB (`in_cg` in csrc/conv3x3_narrow.cu)."""
+    return 1 if cout <= 128 else (2 if cout <= 256 else 4)
+
+
+def _fewest_tiles(rows: int, width: int, tiles) -> Tuple[int, int]:
+    """The tile (rows, columns) of `tiles` that covers a rows x width map
+    with the fewest tiles, then with the smallest halo'd patch. A tile stays
+    inside one batch item."""
     def cost(t):
-        n_tiles = -(-rows // t[0]) * -(-width // t[1])
-        return n_tiles, (t[0] + 2) * (t[1] + 2)
-    return min(WIDE_TILES if pixels == 128 else WIDE_TILES_256, key=cost)
+        return -(-rows // t[0]) * -(-width // t[1]), (t[0] + 2) * (t[1] + 2)
+    return min(tiles, key=cost)
+
+
+def narrow_in_tile(rows: int, width: int, cout: int) -> Tuple[int, int]:
+    """The narrow init conv's tile of 128 / `narrow_in_groups(cout)` pixels
+    for a map of rows x width (`_fewest_tiles`)."""
+    return _fewest_tiles(rows, width, NARROW_IN_TILES[128 // narrow_in_groups(cout)])
+
+
+def wide_tile(rows: int, width: int, pixels: int = 128) -> Tuple[int, int]:
+    """The wgmma kernel's tile of `pixels` (128 or 256) for a map of rows x
+    width (`_fewest_tiles`)."""
+    return _fewest_tiles(rows, width, WIDE_TILES if pixels == 128 else WIDE_TILES_256)
 
 
 def wide_bn(n_tiles: int, nb: int, cout: int) -> int:
@@ -320,7 +345,19 @@ def _lib_narrow():
     if lib.kdt_conv3x3_narrow.argtypes is None:
         lib.kdt_conv3x3_narrow.argtypes = [_P] * 7 + [_I] * 10 + [_P]
         lib.kdt_conv3x3_narrow.restype = _I
+        lib.kdt_conv3x3_narrow_in_plan.argtypes = [_I, _I, ctypes.POINTER(_I)]
+        lib.kdt_conv3x3_narrow_in_plan.restype = _I
     return lib
+
+
+def narrow_in_plan(cin: int, cout: int) -> dict:
+    """The narrow init conv's launch at (Cin, Cout), from the library: its
+    dynamic shared memory, staging buffers, blocks an SM and tile pixels."""
+    lib = _lib_narrow()
+    plan = (_I * 4)()
+    _build.check(lib, lib.kdt_conv3x3_narrow_in_plan(cin, cout, plan), "narrow init plan")
+    return dict(smem_bytes=plan[0], staging_buffers=plan[1], blocks_per_sm=plan[2],
+                tile_pixels=plan[3])
 
 
 def conv3x3_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
@@ -358,7 +395,7 @@ def conv3x3_cuda(x: Tensor, w: Tensor, b: Optional[Tensor] = None, *,
     if kernel in ("wgmma", "wgmma_int8"):
         th, tw, bn, ksplit = wide_config(nb, h, wd, cin, cout, quant)
     elif kernel == "narrow":
-        th, tw = NARROW_OUT_TILE if cout <= NARROW_MAX_COUT else wide_tile(h, wd)
+        th, tw = NARROW_OUT_TILE if cout <= NARROW_MAX_COUT else narrow_in_tile(h, wd, cout)
     else:
         tw = tile_w(wd)
         th = 64 // tw

@@ -1,8 +1,9 @@
 // The narrow ends of the U-Nets' 3x3 SAME convolutions over NHWC bf16 for
-// Hopper (sm_90a): the init conv (Cin <= 8: 3 or 6 on the flagship) and the
-// final conv (Cout <= 8: 3), each with its own kernel. `kernels/conv3x3.py`
-// routes them here ("narrow"), by a pure function of (Cin, Cout, quant,
-// bias_in_dtype).
+// Hopper (sm_90a): the init conv (Cin <= 16: 3 or 6 on the flagship, 9 at
+// the conditioned stages of every ultra_res level above 0, 10 and 12 on
+// patch_conditioned and v2) and the final conv (Cout <= 8: 3), each with
+// its own kernel. `kernels/conv3x3.py` routes them here ("narrow"), by a
+// pure function of (Cin, Cout, quant, bias_in_dtype).
 //
 // Replaces: kidney_diffusion_tpu/kernels/conv3x3.py::_pallas_conv3x3 (:394,
 // body `_kernel`, stats finisher at :475-481), for these calls. Same
@@ -16,12 +17,13 @@
 //
 // What bounds them on this card: bytes. The final conv does 2*9*Cin*3
 // operations per pixel on 2*Cin input bytes (27 per byte); the init conv
-// 2*9*Cin*Cout on 2*Cout output bytes (54 at Cin 6). Both are far below
+// 2*9*Cin*Cout on 2*Cout output bytes (81 at Cin 9). Both are far below
 // the ~295 FLOP/byte where the bf16 tensor cores would be the limit: the
-// final conv must read its input once, the init conv write its output once.
-// A general implicit GEMM wastes both: padded to 64 output channels the
-// final conv computes 21x the products it needs and re-reads rows; padded
-// to 16 input channels per tap the init conv does nine passes of K.
+// final conv must read its input once, the init conv write its output once
+// (at stage 3's Cin-9 call 268 MB out, 19 MB in). A general implicit GEMM
+// wastes both: padded to 64 output channels the final conv computes 21x
+// the products it needs and re-reads rows; padded to 16 input channels per
+// tap the init conv does nine passes of K.
 //
 // Design.
 // - Final conv (`narrow_out`, Cout <= 8, Cin % 64 == 0, Cin <= 256): a
@@ -39,18 +41,42 @@
 //   read 3 times, not 9. The two K halves meet in shared memory; the
 //   epilogue stages the tile's outputs (6 bytes a pixel at Cout 3) and
 //   stores whole pixel rows with 16-byte stores.
-// - Init conv (`narrow_in`, Cin <= 8, Cout % 64 == 0, Cout <= 512): K is
-//   the 9 taps x Cin folded into one dimension (27 or 54 values, padded to
-//   32 or 64, or 80 at Cin 8): one K pass, not nine padded taps. A
-//   persistent grid walks 128-pixel tiles; each warp gathers its 16 pixels'
-//   A fragments straight from the tile's small patch (Cin channels a
-//   pixel) into registers, once per tile, and runs them against the folded
-//   weights (in fragment order in shared memory, loaded once per block) for
-//   64 output channels at a time; the epilogue stages each 64-channel pass
-//   in shared memory for 16-byte stores, and the range of the bf16 output
-//   (request C's call) is taken from the values a thread stores. The block
-//   covers all Cout, so the patch is read once; the next tile's patch is
-//   loaded into registers while this one computes.
+// - Init conv (`narrow_in<Cin>`, Cin <= 16, Cout % 64 == 0, Cout <= 512),
+//   one instantiation per Cin, so the patch and offset arithmetic is by
+//   constants. K is the 9 taps x Cin folded into one dimension (27-144
+//   values, padded to KS = ceil(9 Cin / 16) k16 steps: 6 at Cin 9 and 10, 7
+//   at 12, 9 at 16): one K pass, not nine padded taps. A persistent grid
+//   walks tiles of 128 pixels (Cout <= 128), 64 (Cout <= 256) or 32 (more):
+//   the warps split into pixel groups of 16 and, above Cout 128, channel
+//   groups, so a tile's whole output (all Cout) is at most 32 KB.
+//   - Input: the tile's halo'd patch, Cin channels a pixel (18-32 bytes, not
+//     16-byte aligned), loaded element by element (2-byte loads) into
+//     registers one tile ahead, then into shared memory with the prologue.
+//     Each warp gathers its 16 pixels' A fragments from it once a tile
+//     through a per-lane table of packed 16-bit byte offsets (one 32-bit
+//     add gives two), held in shared memory so they cost no registers
+//     (124 at Cin 9, 128 at 12, no spills).
+//   - Weights: the folded B (K x Cout), zero past K, in shared memory in
+//     `mma.sync` fragment order, two n8 blocks to a 16-byte load, loaded
+//     once per block (24 KB at Cin 9 and Cout 128, 147 KB at Cin 16 and
+//     Cout 512).
+//   - Output, where the time goes: each 64-channel pass of a warp turns its
+//     accumulators into bf16 pairs, and two 4 x 4 transposes within each
+//     lane quad (odd pixels swapping halves first) turn them into 16-byte
+//     rows written to the staged tile without bank conflicts. The staged
+//     tile is NHWC exactly, so each tile row (TW pixels x Cout) is one
+//     contiguous run, and one thread writes it with the asynchronous bulk
+//     copy (`cp.async.bulk.global.shared::cta`, one bulk group a tile). Two
+//     staging buffers let a tile's store drain while the next tile
+//     computes; the bulk group is waited for (`.read`) only before its
+//     buffer is written again. The range of the bf16 output (request C's
+//     and the level's stage-3 call) is read off the staged tile before the
+//     next one overwrites it.
+//   - Occupancy: two blocks an SM (128 registers a thread) with two staging
+//     buffers where the shared memory allows (every Cout <= 192, and every
+//     served call but one); else two with one (Cin 8-14 at Cout 256: v2's
+//     stage 1 at Cin 9), else one block with two (Cin 15-16 at Cout 256,
+//     Cin >= 8 at Cout 512); `kdt_conv3x3_narrow_in_plan` reports it.
 // Stats and range slots go to one slot per tile, reduced across warps in
 // a fixed order (no atomics; the wrapper reduces the slots in a fixed
 // order).
@@ -59,6 +85,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -76,6 +103,7 @@ struct Args {
   int nb, H, W, Cin, Cout, chunks, TH, TW, tiles_x, n_tiles;
   int range_mode;          // 1: of fp32 z (bias added by the wrapper); 2: of the bf16 output
   int bias_in_dtype;
+  int nbuf;                // the init conv's staging buffers (set at its launch)
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -145,10 +173,11 @@ __device__ __forceinline__ bool is_input(const Args& a, int bi, int r, int c) {
 
 // The input pixel the conv reads at row `r`, column `c` of item `bi` (see
 // `is_input`; the halo rows resolve to the neighbour chunk's edge rows).
-__device__ __forceinline__ const __nv_bfloat16* src_pixel(const Args& a, int bi, int r, int c) {
+__device__ __forceinline__ const __nv_bfloat16* src_pixel(const Args& a, int bi, int r, int c,
+                                                          int cin) {
   const int b = r < 0 ? bi - 1 : (r == a.H ? bi + 1 : bi);
   r = r < 0 ? a.H - 1 : (r == a.H ? 0 : r);
-  return a.x + ((size_t)(b * a.H + r) * a.W + c) * a.Cin;
+  return a.x + ((size_t)(b * a.H + r) * a.W + c) * cin;
 }
 
 // byte offset of 16-byte chunk `c` of patch pixel `p` (chunks XOR-swizzled
@@ -218,7 +247,7 @@ __global__ void __launch_bounds__(THREADS, 1) conv3x3_narrow_out(const Args a) {
     for (; p < OUT_NPATCH; p += THREADS / 8) {
       const int r = ty0 + pr - 1, col = tx0 + pc - 1;
       const bool in = is_input(a, bi, r, col);
-      cp_async16(dst + patch_off(p, c), in ? src_pixel(a, bi, r, col) + coff : a.x, in);
+      cp_async16(dst + patch_off(p, c), in ? src_pixel(a, bi, r, col, a.Cin) + coff : a.x, in);
       pc += THREADS / 8;
       while (pc >= OUT_PW) pc -= OUT_PW, ++pr;
     }
@@ -387,58 +416,172 @@ __global__ void __launch_bounds__(THREADS, 1) conv3x3_narrow_out(const Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// init conv: Cin <= 8, K = 9 * Cin folded into KS k16 steps
-constexpr int IN_BM = 128;           // pixels a tile
-constexpr int IN_MAX_PATCH = 264;    // (TH+2)*(TW+2) of the widest 128-pixel tile, 2 x 64
-constexpr int IN_OLD = 64 + 8;       // output staging row (bf16), padded by 16 bytes
+// init conv: Cin <= 16, K = 9 * Cin folded into KS k16 steps
+constexpr int IN_MAX_CIN = 16;
 constexpr int IN_MAX_COUT = 512;
+constexpr int IN_MAX_PATCH = 264;  // (TH+2)*(TW+2) of the widest tile, 2 x 64
+// the patch (Cin channels a pixel), then, once its A fragments are in
+// registers, the epilogue's exchange: 8 warps x 64 channels of float4
+// (stats), or [slot][Cout] bf16 [max] and [min] (the output's range)
+constexpr int IN_SCRATCH = IN_MAX_PATCH * IN_MAX_CIN * 2;
+constexpr int SM_SMEM = 233472;     // shared memory of an SM (228 KB)
+constexpr int BLOCK_RESERVED = 1024;  // the part of it the system keeps a block
 
-__host__ __device__ constexpr int in_smem_bytes(int ks, int cout) {
-  return ks * cout * 32 + IN_BM * IN_OLD * 2 + 8 * 64 * 16 + IN_MAX_PATCH * 8 * 2 + 16;
+__host__ __device__ constexpr int in_ks(int cin) { return (9 * cin + 15) / 16; }
+// channel groups a tile's Cout is split into across warps: a tile holds
+// 128 / cg pixels, so its staged output is at most 32 KB
+__host__ __device__ constexpr int in_cg(int cout) { return cout <= 128 ? 1 : (cout <= 256 ? 2 : 4); }
+__host__ __device__ constexpr int in_stage_bytes(int cout) { return 128 / in_cg(cout) * cout * 2; }
+
+// shared memory: the staged output tiles (nbuf of them), the folded weights
+// in fragment order, the scratch, the bias and the A offsets per lane
+__host__ __device__ constexpr int in_smem_bytes(int ks, int cout, int nbuf) {
+  return nbuf * in_stage_bytes(cout) + ks * cout * 32 + IN_SCRATCH + cout * 4 + 4 * ks * 8;
 }
 
-template <int KS>
+// (staging buffers, blocks an SM) of an init-conv launch: two blocks an SM
+// with two staging buffers where they fit, else two with one, else one
+// block with two
+__host__ __device__ constexpr int in_nbuf(int ks, int cout) {
+  return 2 * (in_smem_bytes(ks, cout, 2) + BLOCK_RESERVED) <= SM_SMEM   ? 2
+         : 2 * (in_smem_bytes(ks, cout, 1) + BLOCK_RESERVED) <= SM_SMEM ? 1
+                                                                         : 2;
+}
+__host__ __device__ constexpr int in_blocks_per_sm(int ks, int cout) {
+  return 2 * (in_smem_bytes(ks, cout, in_nbuf(ks, cout)) + BLOCK_RESERVED) <= SM_SMEM ? 2 : 1;
+}
+
+__device__ __forceinline__ void bulk_store(void* gdst, uint32_t ssrc, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(gdst), "r"(ssrc), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until at most N bulk groups of this thread still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// this thread's generic-proxy writes to shared memory, ordered before the
+// async proxy's (bulk copy) reads of it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The four lanes of a quad hold words w0..w3 each; afterwards lane t4 holds
+// word t4 of lanes 0, 1, 2, 3 (a 4 x 4 transpose by two exchanges)
+__device__ __forceinline__ void quad_transpose(uint32_t& w0, uint32_t& w1, uint32_t& w2,
+                                               uint32_t& w3, int t4) {
+  const bool o1 = t4 & 1, o2 = t4 & 2;
+  uint32_t r0 = __shfl_xor_sync(0xffffffffu, o1 ? w0 : w1, 1);
+  uint32_t r1 = __shfl_xor_sync(0xffffffffu, o1 ? w2 : w3, 1);
+  if (o1) {
+    w0 = r0;
+    w2 = r1;
+  } else {
+    w1 = r0;
+    w3 = r1;
+  }
+  r0 = __shfl_xor_sync(0xffffffffu, o2 ? w0 : w2, 2);
+  r1 = __shfl_xor_sync(0xffffffffu, o2 ? w1 : w3, 2);
+  if (o2) {
+    w0 = r0;
+    w1 = r1;
+  } else {
+    w2 = r0;
+    w3 = r1;
+  }
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_bf2(uint32_t u) {
+  __nv_bfloat162 v;
+  memcpy(&v, &u, 4);
+  return v;
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  uint32_t u;
+  memcpy(&u, &v, 4);
+  return u;
+}
+
+template <int CIN>
 __global__ void __launch_bounds__(THREADS, 2) conv3x3_narrow_in(const Args a) {
+  constexpr int KS = in_ks(CIN), K = 9 * CIN;
+  // patch elements a thread loads for the next tile (two to a register)
+  constexpr int NEL = (IN_MAX_PATCH * CIN + THREADS - 1) / THREADS;
   extern __shared__ __align__(128) uint8_t smem[];
-  uint2* bfrag = reinterpret_cast<uint2*>(smem);  // [k16][n8][lane]
-  __nv_bfloat16* ost = reinterpret_cast<__nv_bfloat16*>(smem + KS * a.Cout * 32);
-  float4* sred = reinterpret_cast<float4*>(ost + IN_BM * IN_OLD);  // [warp][64]
-  __nv_bfloat16* patch = reinterpret_cast<__nv_bfloat16*>(sred + 8 * 64);
-  const int zero = IN_MAX_PATCH * 8;  // a zero element: the padding of K
+  const int Cout = a.Cout, CG = in_cg(Cout), PG = 8 / CG, BM = 16 * PG;
+  const int npass = Cout / 64, npw = (npass + CG - 1) / CG, n16 = Cout / 16;
+  const int stage_bytes = BM * Cout * 2;
+  uint8_t* stg = smem;  // [buffer][pixel][Cout] bf16, the tile's rows as NHWC lays them out
+  const uint4* bfrag = reinterpret_cast<const uint4*>(smem + a.nbuf * stage_bytes);
+  uint8_t* scratch = smem + a.nbuf * stage_bytes + KS * Cout * 32;
+  __nv_bfloat16* patch = reinterpret_cast<__nv_bfloat16*>(scratch);
+  float4* sred = reinterpret_cast<float4*>(scratch);  // [warp][64]
+  float* bias_s = reinterpret_cast<float*>(scratch + IN_SCRATCH);
+  uint2* koff_s = reinterpret_cast<uint2*>(bias_s + Cout);  // [t4][ks]
+
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
-  const int Cin = a.Cin, Cout = a.Cout, K = 9 * Cin, n8 = Cout / 8;
-  const int TH = a.TH, TW = a.TW, PW = TW + 2, npatch = (TH + 2) * PW;
-  if (tid == 0) patch[zero] = __float2bfloat16(0.0f);
+  const int pg = warp / CG, cg = warp - pg * CG;  // this warp's 16 pixels, its channel group
+  const int TH = a.TH, TW = a.TW, PW = TW + 2, RUN = PW * CIN;
+  const int n_el = (TH + 2) * RUN, total = a.nb * a.n_tiles;
+  const uint32_t pw_magic = 0xffffffffu / PW + 1;  // p / PW == umulhi(p, pw_magic) here
+  const int tws = __ffs(TW) - 1;                     // TW is a power of two
 
   // the folded weights B (K x Cout) = w reshaped, k = tap * Cin + ci, as
-  // this lane's B fragment of (k16, n8): rows 2t, 2t+1 and 2t+8, 2t+9,
-  // column g; zeros past K
-  for (int i = tid; i < KS * n8 * 32; i += THREADS) {
-    const int l = i & 31, kn = i >> 5, k16 = kn / n8, nb8 = kn - k16 * n8;
-    const int n = nb8 * 8 + (l >> 2), k0 = k16 * 16 + 2 * (l & 3);
-    __nv_bfloat16 v[4];
+  // this lane's B fragments of (k16, n8 blocks 2q and 2q+1): rows 2t, 2t+1
+  // and 2t+8, 2t+9, column g; zeros past K
+  {
+    uint4* bf = reinterpret_cast<uint4*>(smem + a.nbuf * stage_bytes);
+    for (int i = tid; i < KS * n16 * 32; i += THREADS) {
+      const int l = i & 31, kq = i >> 5, ks = kq / n16, q = kq - ks * n16;
+      const int k0 = ks * 16 + 2 * (l & 3);
+      uint32_t u[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int k = k0 + (e & 1) + (e >> 1) * 8;
-      v[e] = k < K ? a.w[(size_t)k * Cout + n] : __float2bfloat16(0.0f);
+      for (int hb = 0; hb < 2; ++hb) {
+        const int n = (2 * q + hb) * 8 + (l >> 2);
+        __nv_bfloat16 v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = k0 + (e & 1) + (e >> 1) * 8;
+          v[e] = k < K ? a.w[(size_t)k * Cout + n] : __float2bfloat16(0.0f);
+        }
+        u[2 * hb] = pack2(v[0], v[1]);
+        u[2 * hb + 1] = pack2(v[2], v[3]);
+      }
+      bf[i] = make_uint4(u[0], u[1], u[2], u[3]);
     }
-    bfrag[i] = make_uint2(pack2(v[0], v[1]), pack2(v[2], v[3]));
   }
-  // where this lane's A fragment elements sit in the patch, relative to its
-  // pixel: k = ks * 16 + 2 t4 + {0, 1, 8, 9} -> (tap, ci); -1 past K
-  int koff[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
+  for (int i = tid; i < Cout; i += THREADS) bias_s[i] = a.bias != nullptr ? a.bias[i] : 0.0f;
+  // where lane t4's A fragment elements sit in the patch, in bytes from its
+  // pixel: k = ks * 16 + 2 t4 + {0, 1} (x) and + {8, 9} (y), two 16-bit
+  // offsets a word; past K, offset 0 (a real element, times a zero weight)
+  for (int i = tid; i < 4 * KS; i += THREADS) {
+    const int t = i / KS, ks = i - t * KS;
+    uint32_t o[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int k = ks * 16 + 2 * t4 + (e & 1) + (e >> 1) * 8;
-      const int tap = k / Cin, ci = k - tap * Cin;
-      koff[ks][e] = k < K ? ((tap / 3) * PW + tap % 3) * Cin + ci : -1;
+      const int k = ks * 16 + 2 * t + (e & 1) + (e >> 1) * 8;
+      const int tap = k / CIN, ci = k - tap * CIN;
+      o[e] = k < K ? 2 * ((tap / 3) * RUN + (tap % 3) * CIN + ci) : 0;
     }
-  // this warp's pixels: m = 16 warp + g (+ 8)
-  const int m_lo = warp * 16 + g, m_hi = m_lo + 8;
-  const int pb_lo = ((m_lo / TW) * PW + m_lo % TW) * Cin, pb_hi = ((m_hi / TW) * PW + m_hi % TW) * Cin;
+    koff_s[i] = make_uint2(o[0] | (o[1] << 16), o[2] | (o[3] << 16));
+  }
+
+  // this warp's pixels m = 16 pg + g (+ 8); their byte offsets in the patch, twice
+  const int m_lo = pg * 16 + g, m_hi = m_lo + 8;
+  const uint32_t pb_lo = 0x10001u * (2 * CIN * ((m_lo / TW) * PW + m_lo % TW));
+  const uint32_t pb_hi = 0x10001u * (2 * CIN * ((m_hi / TW) * PW + m_hi % TW));
   // range mode 2 without stats reads [max, min] off the staged bf16 output;
   // stats (and range mode 1) come from the fp32 accumulators
   const bool stats = a.partial != nullptr || (a.prange != nullptr && a.range_mode != 2);
@@ -446,173 +589,226 @@ __global__ void __launch_bounds__(THREADS, 2) conv3x3_narrow_in(const Args a) {
 
   // the next tile's patch elements, loaded into registers while this tile
   // computes: a thread holds elements tid, tid + THREADS, ... (raw bf16)
-  constexpr int NEL = (IN_MAX_PATCH * 8 + THREADS - 1) / THREADS;
-  const int n_el = npatch * Cin;
-  unsigned short nxt[NEL];
+  uint32_t nxt[(NEL + 1) / 2];
   auto fetch = [&](int tg) {
     const int bi = tg / a.n_tiles, tt = tg - bi * a.n_tiles;
     const int ty0 = (tt / a.tiles_x) * TH, tx0 = (tt % a.tiles_x) * TW;
 #pragma unroll
     for (int e = 0; e < NEL; ++e) {
-      const int i = tid + e * THREADS, p = i / Cin, ci = i - p * Cin, pr = p / PW;
-      const int r = ty0 + pr - 1, col = tx0 + p - pr * PW - 1;
-      nxt[e] = (i < n_el && is_input(a, bi, r, col))
-                   ? __bfloat16_as_ushort(src_pixel(a, bi, r, col)[ci])
-                   : static_cast<unsigned short>(0);
+      const int i = tid + e * THREADS, p = i / CIN, ci = i - p * CIN;
+      const int pr = __umulhi(p, pw_magic), r = ty0 + pr - 1, col = tx0 + p - pr * PW - 1;
+      uint32_t v = 0;
+      if (i < n_el && is_input(a, bi, r, col))
+        v = __ldg(reinterpret_cast<const unsigned short*>(src_pixel(a, bi, r, col, CIN) + ci));
+      if (e & 1)
+        nxt[e >> 1] |= v << 16;
+      else
+        nxt[e >> 1] = v;
     }
   };
-  if (blockIdx.x < a.nb * a.n_tiles) fetch(blockIdx.x);
+  if (blockIdx.x < total) fetch(blockIdx.x);
 
-  for (int tg = blockIdx.x; tg < a.nb * a.n_tiles; tg += gridDim.x) {
+  int it = 0;
+  for (int tg = blockIdx.x; tg < total; tg += gridDim.x, ++it) {
     const int bi = tg / a.n_tiles, tt = tg - bi * a.n_tiles;
     const int ty0 = (tt / a.tiles_x) * TH, tx0 = (tt % a.tiles_x) * TW;
-    const float* pa = a.pro ? a.pro + (size_t)bi * 2 * Cin : nullptr;
-    __syncthreads();  // the previous tile's fragments are read, its output stored
+    uint8_t* sbuf = stg + (a.nbuf == 2 ? (it & 1) : 0) * stage_bytes;
+    if (tid == 0) {  // the staging buffer's last bulk store has read it
+      if (a.nbuf == 2)
+        bulk_wait_read<1>();
+      else
+        bulk_wait_read<0>();
+    }
+    __syncthreads();  // also: the previous tile's fragments and exchange are read
     // the halo'd patch, Cin channels a pixel: prologue, padding zeros after it
+    const float* pa = a.pro ? a.pro + (size_t)bi * 2 * CIN : nullptr;
 #pragma unroll
     for (int e = 0; e < NEL; ++e) {
       const int i = tid + e * THREADS;
       if (i >= n_el) break;
-      const int p = i / Cin, ci = i - p * Cin, pr = p / PW;
-      __nv_bfloat16 v = __ushort_as_bfloat16(nxt[e]);
-      if (pa != nullptr && is_input(a, bi, ty0 + pr - 1, tx0 + p - pr * PW - 1))
-        v = prologue(__bfloat162float(v), pa[ci], pa[Cin + ci]);
+      __nv_bfloat16 v = __ushort_as_bfloat16(static_cast<unsigned short>(nxt[e >> 1] >> (16 * (e & 1))));
+      if (pa != nullptr) {
+        const int p = i / CIN, ci = i - p * CIN;
+        const int pr = __umulhi(p, pw_magic);
+        if (is_input(a, bi, ty0 + pr - 1, tx0 + p - pr * PW - 1))
+          v = prologue(__bfloat162float(v), pa[ci], pa[CIN + ci]);
+      }
       patch[i] = v;
     }
     __syncthreads();
-    if (tg + gridDim.x < a.nb * a.n_tiles) fetch(tg + gridDim.x);
+    if (tg + gridDim.x < total) fetch(tg + gridDim.x);
+
+    // the A fragments of this warp's 16 pixels, all KS k16 steps
     uint32_t af[KS][4];
+    {
+      const uint8_t* pbytes = scratch;
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
+      for (int ks = 0; ks < KS; ++ks) {
+        const uint2 ko = koff_s[t4 * KS + ks];
 #pragma unroll
-      for (int rr = 0; rr < 4; ++rr) {  // a0: row g, k 2t; a1: row g+8; a2, a3: k + 8
-        const int pb = (rr & 1) ? pb_hi : pb_lo, e0 = (rr >> 1) * 2;
-        const int o0 = koff[ks][e0], o1 = koff[ks][e0 + 1];
-        af[ks][rr] = pack2(patch[o0 >= 0 ? pb + o0 : zero], patch[o1 >= 0 ? pb + o1 : zero]);
+        for (int rr = 0; rr < 4; ++rr) {  // a0: row g, k 2t; a1: row g+8; a2, a3: k + 8
+          const uint32_t o = ((rr & 1) ? pb_hi : pb_lo) + ((rr >> 1) ? ko.y : ko.x);
+          const uint32_t lo = *reinterpret_cast<const unsigned short*>(pbytes + (o & 0xffffu));
+          const uint32_t hi = *reinterpret_cast<const unsigned short*>(pbytes + (o >> 16));
+          af[ks][rr] = lo | (hi << 16);
+        }
       }
+    }
+    if (stats) __syncthreads();  // the exchange overwrites the patch
     const bool ok_lo = ty0 + m_lo / TW < a.H && tx0 + m_lo % TW < a.W;
     const bool ok_hi = ty0 + m_hi / TW < a.H && tx0 + m_hi % TW < a.W;
 
-    for (int pass = 0; pass < Cout / 64; ++pass) {
-      float acc[8][4];
+    // passes of 64 output channels: warp (pg, cg) takes passes cg, cg + CG, ...
+    for (int pi = 0; pi < npw; ++pi) {
+      const int pass = pi * CG + cg, cb = pass * 64;
+      if (pass < npass) {  // warp-uniform
+        float acc[8][4];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+        for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+          for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
+        for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const uint4 b = bfrag[(ks * n16 + cb / 16 + q) * 32 + lane];
+            mma_bf16(acc[2 * q], af[ks], b.x, b.y);
+            mma_bf16(acc[2 * q + 1], af[ks], b.z, b.w);
+          }
+        // accumulator 2h + c of n8 block nt: pixel m_lo (h 0) or m_hi,
+        // column cb + nt * 8 + 2 t4 + c; bf16 pairs of columns
+        uint32_t P[2][8];
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
-          const uint2 b = bfrag[(ks * n8 + pass * 8 + nt) * 32 + lane];
-          mma_bf16(acc[nt], af[ks], b.x, b.y);
-        }
-      // accumulator 2h + c of n8 block nt: pixel m_lo (h 0) or m_hi, column nt*8 + 2 t4 + c
+          const int nl = nt * 8 + 2 * t4;
+          const float2 bb = *reinterpret_cast<const float2*>(&bias_s[cb + nl]);
+          const __nv_bfloat16 y00 = yval(a, acc[nt][0], bb.x), y01 = yval(a, acc[nt][1], bb.y);
+          const __nv_bfloat16 y10 = yval(a, acc[nt][2], bb.x), y11 = yval(a, acc[nt][3], bb.y);
+          P[0][nt] = pack2(y00, y01);
+          P[1][nt] = pack2(y10, y11);
+          if (!stats) continue;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int nl = nt * 8 + 2 * t4, co = pass * 64 + nl;
-        const float b0 = a.bias != nullptr ? a.bias[co] : 0.0f;
-        const float b1 = a.bias != nullptr ? a.bias[co + 1] : 0.0f;
-        const __nv_bfloat16 y00 = yval(a, acc[nt][0], b0), y01 = yval(a, acc[nt][1], b1);
-        const __nv_bfloat16 y10 = yval(a, acc[nt][2], b0), y11 = yval(a, acc[nt][3], b1);
-        *reinterpret_cast<uint32_t*>(&ost[m_lo * IN_OLD + nl]) = pack2(y00, y01);
-        *reinterpret_cast<uint32_t*>(&ost[m_hi * IN_OLD + nl]) = pack2(y10, y11);
-        if (!stats) continue;
+          for (int c = 0; c < 2; ++c) {
+            float s1 = 0.0f, s2 = 0.0f, hi = -INFINITY, lo = INFINITY;
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          float s1 = 0.0f, s2 = 0.0f, hi = -INFINITY, lo = INFINITY;
+            for (int h = 0; h < 2; ++h) {
+              if (!(h ? ok_hi : ok_lo)) continue;
+              const float z = acc[nt][2 * h + c];
+              s1 += z;
+              s2 += z * z;
+              const __nv_bfloat16 yv = h ? (c ? y11 : y10) : (c ? y01 : y00);
+              const float rv = a.range_mode == 2 ? __bfloat162float(yv) : z;
+              hi = fmaxf(hi, rv);
+              lo = fminf(lo, rv);
+            }
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            if (!(h ? ok_hi : ok_lo)) continue;
-            const float z = acc[nt][2 * h + c];
-            s1 += z;
-            s2 += z * z;
-            const __nv_bfloat16 yv = h ? (c ? y11 : y10) : (c ? y01 : y00);
-            const float rv = a.range_mode == 2 ? __bfloat162float(yv) : z;
-            hi = fmaxf(hi, rv);
-            lo = fminf(lo, rv);
+            for (int off = 4; off < 32; off <<= 1) {
+              s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+              s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+              hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+              lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+            }
+            if (lane < 4) sred[warp * 64 + nl + c] = make_float4(s1, s2, hi, lo);
           }
-#pragma unroll
-          for (int off = 4; off < 32; off <<= 1) {
-            s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-            s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-            hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-            lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-          }
-          if (lane < 4) sred[warp * 64 + nl + c] = make_float4(s1, s2, hi, lo);
         }
+        // into the staged tile as 16-byte rows of 8 channels: odd g swaps
+        // its two halves of 32 channels, then a transpose in each quad
+        // gives lane t4 block t4 of a half, so the 8 lanes of a quarter
+        // warp (g, g + 1) write one pixel's first 64 bytes and the next
+        // one's last 64: all 32 banks, no conflict
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t w[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) w[j] = (g & 1) ? P[h][j ^ 4] : P[h][j];
+          quad_transpose(w[0], w[1], w[2], w[3], t4);
+          quad_transpose(w[4], w[5], w[6], w[7], t4);
+          uint8_t* row = sbuf + ((h ? m_hi : m_lo) * Cout + cb) * 2;
+          const int b0 = ((g & 1) ? 4 : 0) + t4;
+          *reinterpret_cast<uint4*>(row + b0 * 16) = make_uint4(w[0], w[1], w[2], w[3]);
+          *reinterpret_cast<uint4*>(row + (b0 ^ 4) * 16) = make_uint4(w[4], w[5], w[6], w[7]);
+        }
+      }
+      if (stats) {
+        __syncthreads();
+        if (tid < 64 * CG) {
+          const int gc = tid >> 6, ch = tid & 63, p = pi * CG + gc;
+          if (p < npass) {
+            float s1 = 0.0f, s2 = 0.0f, hi = -INFINITY, lo = INFINITY;
+            for (int w = 0; w < PG; ++w) {  // a fixed order
+              const float4 r = sred[(w * CG + gc) * 64 + ch];
+              s1 += r.x;
+              s2 += r.y;
+              hi = fmaxf(hi, r.z);
+              lo = fminf(lo, r.w);
+            }
+            const size_t slot = ((size_t)bi * a.n_tiles + tt) * 2 * Cout + p * 64 + ch;
+            if (a.partial != nullptr) {
+              a.partial[slot] = s1;
+              a.partial[slot + Cout] = s2;
+            }
+            if (a.prange != nullptr) {
+              a.prange[slot] = hi;
+              a.prange[slot + Cout] = lo;
+            }
+          }
+        }
+        __syncthreads();  // sred is free for the next pass
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();  // the tile is staged
+    if (tid == 0) {  // each valid row of the tile: one contiguous run in NHWC
+      const int ncols = min(TW, a.W - tx0);
+      for (int r = 0; r < TH && ty0 + r < a.H; ++r)
+        bulk_store(a.y + ((size_t)(bi * a.H + ty0 + r) * a.W + tx0) * Cout,
+                   smem_u32(sbuf + r * TW * Cout * 2), ncols * Cout * 2);
+      bulk_commit();
+    }
+    if (out_range) {
+      // [max, min] of the staged bf16 output over the tile's valid pixels:
+      // a thread takes 8 channels (chunk c) of pixels s, s + slots, ...;
+      // the slots meet in the scratch ([slot][Cout] bf16, max then min),
+      // reduced over slots in a fixed order
+      const int nc = Cout / 8, slots = THREADS / nc, c = tid % nc, s = tid / nc;
+      __nv_bfloat162 hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        hi[e] = __floats2bfloat162_rn(-INFINITY, -INFINITY);
+        lo[e] = __floats2bfloat162_rn(INFINITY, INFINITY);
+      }
+      if (s < slots) {
+        for (int m = s; m < BM; m += slots) {
+          if (ty0 + (m >> tws) >= a.H || tx0 + (m & (TW - 1)) >= a.W) continue;
+          const uint4 v = *reinterpret_cast<const uint4*>(sbuf + (m * Cout + c * 8) * 2);
+          const uint32_t vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            hi[e] = __hmax2(hi[e], as_bf2(vv[e]));
+            lo[e] = __hmin2(lo[e], as_bf2(vv[e]));
+          }
+        }
+        uint4* xh = reinterpret_cast<uint4*>(scratch + (s * Cout + c * 8) * 2);
+        uint4* xl = reinterpret_cast<uint4*>(scratch + ((slots + s) * Cout + c * 8) * 2);
+        *xh = make_uint4(as_u32(hi[0]), as_u32(hi[1]), as_u32(hi[2]), as_u32(hi[3]));
+        *xl = make_uint4(as_u32(lo[0]), as_u32(lo[1]), as_u32(lo[2]), as_u32(lo[3]));
       }
       __syncthreads();
-      if (stats && tid < 64) {
-        float s1 = 0.0f, s2 = 0.0f, hi = -INFINITY, lo = INFINITY;
-#pragma unroll
-        for (int w = 0; w < 8; ++w) {  // a fixed order
-          const float4 r = sred[w * 64 + tid];
-          s1 += r.x;
-          s2 += r.y;
-          hi = fmaxf(hi, r.z);
-          lo = fminf(lo, r.w);
+      const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(scratch);
+      for (int ch = tid; ch < Cout; ch += THREADS) {
+        float h = -INFINITY, l = INFINITY;
+        for (int q = 0; q < slots; ++q) {  // a fixed order
+          h = fmaxf(h, __bfloat162float(xb[q * Cout + ch]));
+          l = fminf(l, __bfloat162float(xb[(slots + q) * Cout + ch]));
         }
-        const size_t slot = ((size_t)bi * a.n_tiles + tt) * 2 * Cout + pass * 64 + tid;
-        if (a.partial != nullptr) {
-          a.partial[slot] = s1;
-          a.partial[slot + Cout] = s2;
-        }
-        if (a.prange != nullptr) {
-          a.prange[slot] = hi;
-          a.prange[slot + Cout] = lo;
-        }
+        const size_t slot = ((size_t)bi * a.n_tiles + tt) * 2 * Cout + ch;
+        a.prange[slot] = h;
+        a.prange[slot + Cout] = l;
       }
-      // 16-byte stores: a thread stores chunk oc = tid & 7 of pixels tid / 8 +
-      // 32 j; range mode 2 takes [max, min] of the values it stores, then
-      // across the warp's lanes with the same oc, then across warps
-      float hi[8], lo[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) hi[e] = -INFINITY, lo[e] = INFINITY;
-      const int oc = tid & 7;
-#pragma unroll
-      for (int j = 0; j < IN_BM / 32; ++j) {
-        const int m = (tid >> 3) + 32 * j;
-        const int oy = ty0 + m / TW, ox = tx0 + m % TW;
-        if (oy >= a.H || ox >= a.W) continue;
-        const uint4 v = *reinterpret_cast<const uint4*>(&ost[m * IN_OLD + oc * 8]);
-        *reinterpret_cast<uint4*>(a.y + ((size_t)(bi * a.H + oy) * a.W + ox) * Cout +
-                                  pass * 64 + oc * 8) = v;
-        if (out_range) {
-          const __nv_bfloat16* vb = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            hi[e] = fmaxf(hi[e], __bfloat162float(vb[e]));
-            lo[e] = fminf(lo[e], __bfloat162float(vb[e]));
-          }
-        }
-      }
-      if (out_range) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-#pragma unroll
-          for (int off = 8; off < 32; off <<= 1) {
-            hi[e] = fmaxf(hi[e], __shfl_xor_sync(0xffffffffu, hi[e], off));
-            lo[e] = fminf(lo[e], __shfl_xor_sync(0xffffffffu, lo[e], off));
-          }
-          if (lane < 8) sred[warp * 64 + oc * 8 + e] = make_float4(0.0f, 0.0f, hi[e], lo[e]);
-        }
-        __syncthreads();
-        if (tid < 64) {
-          float h = -INFINITY, l = INFINITY;
-#pragma unroll
-          for (int w = 0; w < 8; ++w) {  // a fixed order
-            const float4 r = sred[w * 64 + tid];
-            h = fmaxf(h, r.z);
-            l = fminf(l, r.w);
-          }
-          const size_t slot = ((size_t)bi * a.n_tiles + tt) * 2 * Cout + pass * 64 + tid;
-          a.prange[slot] = h;
-          a.prange[slot + Cout] = l;
-        }
-      }
-      __syncthreads();  // ost and sred are free for the next pass
+      // the scratch is next written after the next tile's first barrier
     }
   }
+  if (tid == 0) bulk_wait_all();  // shared memory stays until the stores have read it
 }
 
 template <typename Kernel>
@@ -624,13 +820,21 @@ int set_smem(Kernel kernel, int bytes, int& allowed) {
   return static_cast<int>(err);
 }
 
-template <int KS>
-int launch_in(const Args& a, int blocks, cudaStream_t stream) {
+template <int CIN>
+int launch_in(Args a, cudaStream_t stream) {
   static int allowed = 0;  // above 48 KB only once the kernel allows it
-  const int bytes = in_smem_bytes(KS, a.Cout);
-  const int err = set_smem(conv3x3_narrow_in<KS>, bytes, allowed);
+  constexpr int ks = in_ks(CIN);
+  if (allowed == 0) {  // all of the SM's unified memory as shared memory
+    const cudaError_t err = cudaFuncSetAttribute(
+        conv3x3_narrow_in<CIN>, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  a.nbuf = in_nbuf(ks, a.Cout);
+  const int bytes = in_smem_bytes(ks, a.Cout, a.nbuf);
+  const int err = set_smem(conv3x3_narrow_in<CIN>, bytes, allowed);
   if (err != 0) return err;
-  conv3x3_narrow_in<KS><<<blocks, THREADS, bytes, stream>>>(a);
+  const int blocks = min(a.nb * a.n_tiles, in_blocks_per_sm(ks, a.Cout) * SMS);
+  conv3x3_narrow_in<CIN><<<blocks, THREADS, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -655,8 +859,9 @@ int kdt_conv3x3_narrow(const void* x, const void* w, const void* bias, const voi
                        void* stream) {
   const bool out = Cout >= 1 && Cout <= 8 && Cin % 64 == 0 && Cin >= 64 && Cin <= OUT_MAX_CIN &&
                    tile_h == OUT_TH && tile_w == OUT_TW;
-  const bool in = Cin >= 1 && Cin <= 8 && Cout % 64 == 0 && Cout >= 64 &&
-                  Cout <= IN_MAX_COUT && tile_h * tile_w == IN_BM && tile_w >= 1 &&
+  const bool in = Cin >= 1 && Cin <= IN_MAX_CIN && Cout % 64 == 0 && Cout >= 64 &&
+                  Cout <= IN_MAX_COUT && tile_h >= 1 && tile_w >= 1 &&
+                  tile_h * tile_w == 128 / in_cg(Cout) && (tile_w & (tile_w - 1)) == 0 &&
                   (tile_h + 2) * (tile_w + 2) <= IN_MAX_PATCH;
   if (!(out || in) || nb < 1 || H < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
@@ -689,10 +894,38 @@ int kdt_conv3x3_narrow(const void* x, const void* w, const void* bias, const voi
     conv3x3_narrow_out<<<min(total, SMS), THREADS, bytes, st>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
-  const int blocks = min(total, 2 * SMS);
-  if (Cin <= 3) return launch_in<2>(a, blocks, st);
-  if (Cin <= 7) return launch_in<4>(a, blocks, st);
-  return launch_in<5>(a, blocks, st);
+  switch (Cin) {  // Cin a compile-time constant: the patch and offset arithmetic folds
+    case 1: return launch_in<1>(a, st);
+    case 2: return launch_in<2>(a, st);
+    case 3: return launch_in<3>(a, st);
+    case 4: return launch_in<4>(a, st);
+    case 5: return launch_in<5>(a, st);
+    case 6: return launch_in<6>(a, st);
+    case 7: return launch_in<7>(a, st);
+    case 8: return launch_in<8>(a, st);
+    case 9: return launch_in<9>(a, st);
+    case 10: return launch_in<10>(a, st);
+    case 11: return launch_in<11>(a, st);
+    case 12: return launch_in<12>(a, st);
+    case 13: return launch_in<13>(a, st);
+    case 14: return launch_in<14>(a, st);
+    case 15: return launch_in<15>(a, st);
+    default: return launch_in<16>(a, st);
+  }
+}
+
+// The init conv's launch at (Cin, Cout): plan[0] = dynamic shared memory
+// bytes, plan[1] = staging buffers, plan[2] = blocks an SM, plan[3] =
+// pixels a tile. Returns cudaErrorInvalidValue for widths it does not take.
+int kdt_conv3x3_narrow_in_plan(int Cin, int Cout, int* plan) {
+  if (Cin < 1 || Cin > IN_MAX_CIN || Cout % 64 != 0 || Cout < 64 || Cout > IN_MAX_COUT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ks = in_ks(Cin), nbuf = in_nbuf(ks, Cout);
+  plan[0] = in_smem_bytes(ks, Cout, nbuf);
+  plan[1] = nbuf;
+  plan[2] = in_blocks_per_sm(ks, Cout);
+  plan[3] = 128 / in_cg(Cout);
+  return 0;
 }
 
 const char* kdt_error_string(int code) {

@@ -169,10 +169,12 @@ def dynamic_amax(x: Tensor) -> Tensor:
     """Per-tensor amax (fp32 scalar), reduced in the input's dtype: the exact
     max|x| of a tensor whose producer has no range epilogue (a re-anchor
     point). A NaN propagates, as in `jnp.max`."""
-    if x.dtype == torch.float8_e4m3fn:
-        # sign-magnitude: |x| orders as the low 7 bits, with NaN (0x7f) on top
+    if x.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        # sign-magnitude: |x| orders as the low 7 bits, with NaN on top
+        # (e4m3fn: 0x7f; e5m2: inf 0x7c, then NaN 0x7d-0x7f), so an inf stays
+        # inf and a NaN propagates, as in `jnp.max(jnp.abs(x))`
         m = (x.view(torch.uint8) & 0x7F).amax().reshape(1)
-        return m.view(torch.float8_e4m3fn).float().reshape(())
+        return m.view(x.dtype).float().reshape(())
     return x.abs().amax().float()
 
 

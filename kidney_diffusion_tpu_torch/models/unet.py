@@ -59,13 +59,15 @@ _E4M3_NAN_ABOVE = 464.0
 def cast_storage(x: Tensor, dtype: torch.dtype) -> Tensor:
     """`x.astype(dtype)` as JAX does it: for float8_e4m3fn, |x| > 464, inf and
     NaN become NaN instead of torch's saturated +-448; below that both round
-    to nearest even. Other dtypes cast as torch casts."""
+    to nearest even. float8_e5m2 has infinities, and torch's cast is JAX's
+    (round to nearest even; from 61440 up, inf). Other dtypes cast as torch
+    casts; another 1-byte float raises."""
     if x.dtype == dtype:
         return x
     if dtype == torch.float8_e4m3fn:
         return torch.where(x.abs() <= _E4M3_NAN_ABOVE, x, float("nan")).to(dtype)
-    if dtype.is_floating_point and dtype.itemsize == 1:
-        raise NotImplementedError(f"storage in {dtype}: only float8_e4m3fn is ported")
+    if dtype.is_floating_point and dtype.itemsize == 1 and dtype != torch.float8_e5m2:
+        raise NotImplementedError(f"storage in {dtype}: only float8_e4m3fn and e5m2 are ported")
     return x.to(dtype)
 
 

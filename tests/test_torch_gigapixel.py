@@ -26,21 +26,10 @@ from kidney_diffusion_tpu_torch.models import configs as tcfg
 from kidney_diffusion_tpu_torch.sample import gigapixel as tgp
 from kidney_diffusion_tpu_torch.sample import resident as tres
 from kidney_diffusion_tpu_torch.sample import wavefront as twf
-from test_torch_helpers import random_flax_params
+from test_torch_helpers import one_torch_thread, random_flax_params  # noqa: F401 (autouse)
 from test_torch_samplers import Feeder, loop_noise
 
 MAG_SIZES = (256, 128, 32)  # tiny levels: patch width 16 inside a 32² final stage
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The tiny levels here are thousands of small torch ops: on one
-    intra-op thread each, parallel test workers do not oversubscribe the
-    cores (each would otherwise spin one thread per core on every op)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------
@@ -644,7 +633,8 @@ def test_smoke_launch_counts_of_the_gigapixel_level():
     `ultra_res(1, "v_param")` with the int8 + fp8 overrides: 375, 375 and
     256 forwards (15 wave chunks at DPM++-25 for stages 1-2, 64 batch-1
     patches at DDIM-4 for stage 3) and, per kernel, one launch per layer of
-    each: 631 on the WMMA kernel, exactly the Cin-9 init convs of stages 2
+    each: none on the WMMA kernel; the narrow kernel takes every init and
+    final conv, 2012 launches, 631 of them the Cin-9 init convs of stages 2
     and 3 (3 + 3 low-res + 3 cond channels); the first four patches (G',
     M2) make 100, 100 and 16."""
     import chip_smoke as cs
@@ -655,14 +645,15 @@ def test_smoke_launch_counts_of_the_gigapixel_level():
     assert forwards == ((1, 375), (2, 375), (3, 256))
     assert cs.level_forwards(cfg, twf.full_grid(8)[:4]) == ((1, 100), (2, 100), (3, 16))
     want = cs.expected_launches(cfg, forwards)
-    assert want == {"conv3x3": 51137, "conv3x3_wide": 49125, "conv3x3_narrow": 1381,
+    assert want == {"conv3x3": 51137, "conv3x3_wide": 49125, "conv3x3_narrow": 1381 + 631,
                     "conv3x3_int8": 27136, "conv3x3_int8_wide": 27136, "attention": 9018}
+    assert want["conv3x3_narrow"] == cs.GIGA_NARROW_LAUNCHES
     by_kernel = cs.per_kernel(want)
-    assert by_kernel["conv3x3"] == cs.wmma_sites(cfg, forwards) == 375 + 256
+    assert by_kernel["conv3x3"] == cs.wmma_sites(cfg, forwards) == cs.GIGA_WMMA_LAUNCHES == 0
     assert by_kernel["conv3x3_int8"] == 0
     for n, cin in ((1, 6), (2, 9), (3, 9)):
         unet = cfg.stage(n).unet
         sites = dict(cs.conv_sites(unet, cfg.stage(n).image_size))
-        assert sites["init_conv"] == ("narrow" if cin <= 8 else "wmma")
+        assert sites["init_conv"] == "narrow"
         assert next(m for name, m, *_ in cs.conv_shapes(unet, 64) if name == "init_conv"
                     ).kernel.shape[2] == cin

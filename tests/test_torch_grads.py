@@ -22,6 +22,7 @@ from kidney_diffusion_tpu.kernels import attention as jattn
 from kidney_diffusion_tpu.kernels import conv3x3 as jconv
 from kidney_diffusion_tpu_torch.kernels import attention as tattn
 from kidney_diffusion_tpu_torch.kernels import conv3x3 as tconv
+from test_torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 BF16_NORMWISE = 2.0**-8

@@ -2,6 +2,21 @@
 
 import jax
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Tiny U-Nets and levels are thousands of small torch ops: on one
+    intra-op thread each, parallel test workers do not oversubscribe the
+    cores (each would otherwise spin one thread per core on every op). A
+    speed setting: no tolerance depends on it. A test file imports it to
+    make it autouse there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def random_flax_params(init, seed=0):

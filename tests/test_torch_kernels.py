@@ -15,6 +15,7 @@ from kidney_diffusion_tpu.kernels import attention as jatt
 from kidney_diffusion_tpu.kernels import conv3x3 as jc3
 from kidney_diffusion_tpu_torch.kernels import attention as tatt
 from kidney_diffusion_tpu_torch.kernels import conv3x3 as tc3
+from test_torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 CONV_ATOL = 1e-3  # as tests/test_kernels.py holds Pallas to XLA
 ATTN_ATOL = 2e-5
@@ -26,6 +27,10 @@ CONV_CASES = {
     "chunked": (2, 4, 12, 8, 6, True, True, 4, 1.0),
     "chunked_one_row": (1, 1, 8, 4, 4, False, True, 8, 1.0),
     "no_bias_no_stats": (1, 6, 7, 6, 5, False, False, 0, 0.0),
+    # the conditioned init convs' widths (the narrow kernel's folded K of 81
+    # and 108)
+    "cin9_chunked": (2, 4, 12, 9, 16, False, True, 4, 1.0),
+    "cin12_prologue_stats": (2, 8, 16, 12, 16, True, True, 0, 1.0),
 }
 
 
@@ -67,7 +72,8 @@ def test_conv3x3_plain_matches_xla(case):
         np.testing.assert_allclose(g, r, atol=CONV_ATOL, rtol=1e-5)
 
 
-@pytest.mark.parametrize("case", ["prologue_stats", "border_rows", "chunked"])
+@pytest.mark.parametrize("case", ["prologue_stats", "border_rows", "chunked", "cin9_chunked",
+                                  "cin12_prologue_stats"])
 def test_conv3x3_plain_matches_pallas_interpret(case):
     b, rows, w, cin, cout, pro, stats, chunks, bs = CONV_CASES[case]
     x, wk, bias, p = _conv_inputs(b, rows, w, cin, cout, pro, chunks, bs, seed=1)
@@ -226,7 +232,9 @@ def test_conv_routing_over_the_flagship_sites():
     go to the wgmma kernel and the 6 narrow ends (init and final convs, the
     unchunked init conv with its bf16-bias rounding) to the narrow kernel;
     the 106 int8 sites of the served config go to the wgmma int8 kernel; no
-    flagship site goes to the WMMA kernel, which keeps ragged widths."""
+    flagship site goes to the WMMA kernel, which keeps ragged widths. The
+    conditioned configs' init convs (Cin 9, 10, 12) go to the narrow kernel
+    too, so no site of a conditioned config goes to the WMMA kernel."""
     import chip_smoke as cs
     from kidney_diffusion_tpu_torch.models.configs import serving_overrides, ultra_res
 
@@ -250,6 +258,33 @@ def test_conv_routing_over_the_flagship_sites():
     # ragged widths stay on the WMMA kernel, in both modes
     assert tc3.route(96, 96) == tc3.route(96, 96, quant=True) == "wmma"
     assert tc3.route(16, 32) == tc3.route(3, 40) == tc3.route(48, 3) == "wmma"
+    # the conditioned init convs: Cin 9 (3 + 3 low-res + 3 cond), 10
+    # (patch_conditioned's labelmap) and 12 (v2's 6 cond channels)
+    for bid in (False, True):
+        assert [tc3.route(c, 128, bias_in_dtype=bid) for c in (9, 10, 12)] == ["narrow"] * 3
+        assert tc3.route(9, 256, bias_in_dtype=bid) == "narrow"
+        assert tc3.route(17, 128, bias_in_dtype=bid) == "wmma"
+    from kidney_diffusion_tpu_torch.models.configs import kumar, patch_conditioned
+
+    conditioned = [ultra_res(m, v) for m in (1, 2) for v in ("v1", "v2", "v_param", "airs")]
+    conditioned += [patch_conditioned(), kumar(),
+                    serving_overrides(ultra_res(1, "v_param"), quant="int8",
+                                      storage="float8_e4m3fn")]
+    init_cin = set()
+    for cfg in conditioned:
+        for st in cfg.stages:
+            sites = dict(cs.conv_sites(st.unet, st.image_size))
+            assert "wmma" not in sites.values() and "wmma_int8" not in sites.values(), cfg.name
+            assert sites["init_conv"] == "narrow"
+            init_cin.add(build_init_cin(st.unet))
+    assert {9, 10, 12} <= init_cin
+
+
+def build_init_cin(unet):
+    """Cin of a U-Net config's init conv (built on the meta device)."""
+    from kidney_diffusion_tpu_torch.convert import build_model
+
+    return build_model(unet).init_conv.kernel.shape[2]
 
 
 def test_smoke_launch_counts_of_the_served_requests():
@@ -493,16 +528,17 @@ def test_int8_split_k_int32_partials_finish_bit_equal(ksplit, cin):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("kind", ["final", "init"])
+@pytest.mark.parametrize("kind", ["final", "init", "init_cin9"])
 @pytest.mark.parametrize("rows,width", [(7, 40), (5, 130), (9, 70), (3, 200)])
 def test_conv3x3_narrow_tile_slots_finish_to_plain_stats(rows, width, kind):
     """The narrow kernel writes one [sum z, sum z^2] and one [max, min] slot
     per tile over its valid pixels: 4 x 64 tiles for the final conv,
-    `wide_tile`'s 128-pixel tiles for the init conv. Summed (and max/min'ed)
-    by the wrapper they give the plain stats and ranges, at widths that
-    leave partial tiles. Stats to 1e-4 relative (fp32 sums in another
-    order, as the wide-tile test); ranges exactly."""
-    cin, cout = (64, 3) if kind == "final" else (6, 64)
+    `narrow_in_tile`'s tiles for the init conv (128 pixels at Cout 64, 64
+    at the Cin-9 case's Cout 256). Summed (and max/min'ed) by the wrapper
+    they give the plain stats and ranges, at widths that leave partial
+    tiles. Stats to 1e-4 relative (fp32 sums in another order, as the
+    wide-tile test); ranges exactly."""
+    cin, cout = {"final": (64, 3), "init": (6, 64), "init_cin9": (9, 256)}[kind]
     assert tc3.route(cin, cout) == "narrow"
     rng = np.random.default_rng(rows * width)
     x = torch.from_numpy(rng.normal(size=(2, rows, width, cin)).astype(np.float32))
@@ -510,7 +546,8 @@ def test_conv3x3_narrow_tile_slots_finish_to_plain_stats(rows, width, kind):
     b = torch.from_numpy(rng.normal(size=(cout,)).astype(np.float32))
     _, want, want_rng = tc3.conv3x3(x, w, b, want_stats=True, want_range=True)
     z = tc3.conv3x3(x, w, None).double()
-    th, tw = tc3.NARROW_OUT_TILE if kind == "final" else tc3.wide_tile(rows, width)
+    th, tw = (tc3.NARROW_OUT_TILE if kind == "final"
+              else tc3.narrow_in_tile(rows, width, cout))
     tiles = [z[:, y0:y0 + th, x0:x0 + tw] for y0 in range(0, rows, th)
              for x0 in range(0, width, tw)]
     assert len(tiles) == -(-rows // th) * -(-width // tw)
@@ -522,3 +559,116 @@ def test_conv3x3_narrow_tile_slots_finish_to_plain_stats(rows, width, kind):
     hi = torch.stack([t.amax((1, 2)) for t in tiles], 1).amax(1).float() + b
     lo = torch.stack([t.amin((1, 2)) for t in tiles], 1).amin(1).float() + b
     assert torch.equal(torch.stack([hi, lo], 1), want_rng)
+
+
+def test_narrow_in_tiles_fit_the_kernel():
+    """The narrow init conv's tile holds 128 / `narrow_in_groups(Cout)`
+    pixels (so its staged output, all Cout channels, is at most 32 KB), a
+    power-of-two number of columns and a halo'd patch of at most 264
+    pixels; each map gets the tile that covers it fewest times."""
+    for cout, groups in ((64, 1), (128, 1), (192, 2), (256, 2), (320, 4), (512, 4)):
+        assert tc3.narrow_in_groups(cout) == groups
+        pixels = 128 // groups
+        assert pixels * cout * 2 <= 32 * 1024
+        for rows, width in [(64, 1024), (256, 256), (64, 64), (5, 37), (9, 20), (1, 8), (7, 130)]:
+            th, tw = tc3.narrow_in_tile(rows, width, cout)
+            assert th * tw == pixels and tw & (tw - 1) == 0 and (th + 2) * (tw + 2) <= 264
+            n = -(-rows // th) * -(-width // tw)
+            assert n == min(-(-rows // a) * -(-width // b) for a, b in tc3.NARROW_IN_TILES[pixels])
+    assert tc3.narrow_in_tile(64, 1024, 128) == (8, 16)  # stage 3's init conv: 128-pixel tiles
+
+
+def _bfrag(w, ks_n):
+    """The kernel's fill of its B fragments: element i = (ks * n16 + q) *
+    32 + l of the fragment array holds, for n8 blocks 2q + hb, column n =
+    (2q + hb) * 8 + l // 4, rows k0 + {0, 1, 8, 9} with k0 = ks * 16 + 2 (l
+    % 4), zeros past K."""
+    cin, cout = w.shape[2], w.shape[3]
+    wf = w.reshape(9 * cin, cout)
+    n16 = cout // 16
+    frag = torch.zeros((ks_n * n16 * 32, 8), dtype=w.dtype)
+    for i in range(ks_n * n16 * 32):
+        l, kq = i & 31, i >> 5
+        ks, q = divmod(kq, n16)
+        k0 = ks * 16 + 2 * (l & 3)
+        for hb in range(2):
+            n = (2 * q + hb) * 8 + (l >> 2)
+            for e in range(4):
+                k = k0 + (e & 1) + (e >> 1) * 8
+                if k < 9 * cin:
+                    frag[i, 4 * hb + e] = wf[k, n]
+    return frag
+
+
+def _koff(cin, ks_n, pw):
+    """The kernel's table of A offsets: entry (t4, ks) packs the byte
+    offsets of k = ks * 16 + 2 t4 + {0, 1} (.x) and + {8, 9} (.y)."""
+    run = pw * cin
+    table = []
+    for t in range(4):
+        row = []
+        for ks in range(ks_n):
+            o = []
+            for e in range(4):
+                k = ks * 16 + 2 * t + (e & 1) + (e >> 1) * 8
+                tap, ci = divmod(k, cin)
+                o.append(2 * ((tap // 3) * run + (tap % 3) * cin + ci) if k < 9 * cin else 0)
+            assert max(o) < 2**16
+            row.append((o[0] | o[1] << 16, o[2] | o[3] << 16))
+        table.append(row)
+    return table
+
+
+@pytest.mark.parametrize("cin", [3, 6, 8, 9, 10, 12, 16])
+def test_narrow_in_folded_k_layout_gathers_to_the_plain_conv(cin):
+    """Rebuild the narrow init conv's operands in torch exactly as the
+    kernel indexes them: its B fragments read back as `mma.sync.m16n8k16`
+    takes them (lane (g, t4): column g, rows 2 t4, 2 t4 + 1, 2 t4 + 8, 2 t4
+    + 9) give B[k, n] = w[k // Cin, k % Cin, n], zero past K; each pixel's
+    A row gathered from the halo'd patch through the packed `koff` table
+    (the 16-bit halves added to the pixel's byte offset, twice, in one
+    32-bit add) is its 3 x 3 x Cin receptive field in k order. Then A @ B
+    over the tile is the plain conv (float64: exact up to summation
+    order)."""
+    cout, (th, tw) = 32, (8, 16)
+    rng = np.random.default_rng(cin)
+    w = torch.from_numpy(rng.normal(size=(3, 3, cin, cout)))
+    x = torch.from_numpy(rng.normal(size=(1, th, tw, cin)))
+    ks_n, pw, k_n = -(-9 * cin // 16), tw + 2, 9 * cin
+    # B, read back from the fragments the way each lane feeds the MMA
+    frag, n16 = _bfrag(w, ks_n), cout // 16
+    b = torch.full((ks_n * 16, cout), float("nan"), dtype=torch.float64)
+    for ks in range(ks_n):
+        for q in range(n16):
+            for lane in range(32):
+                g, t4 = lane >> 2, lane & 3
+                f = frag[(ks * n16 + q) * 32 + lane]
+                for hb in range(2):
+                    n = (2 * q + hb) * 8 + g
+                    for e, dk in enumerate((0, 1, 8, 9)):
+                        b[ks * 16 + 2 * t4 + dk, n] = f[4 * hb + e]
+    want_b = torch.zeros_like(b)
+    want_b[:k_n] = w.reshape(9 * cin, cout)
+    assert torch.equal(b, want_b)
+    # A, gathered through koff from the patch (SAME padding zeros around x)
+    patch = torch.nn.functional.pad(x[0], (0, 0, 1, 1, 1, 1)).reshape(-1)
+    assert patch.numel() == (th + 2) * pw * cin <= 264 * 16
+    koff = _koff(cin, ks_n, pw)
+    a = torch.zeros((th * tw, ks_n * 16), dtype=torch.float64)
+    for m in range(th * tw):
+        pb = 0x10001 * 2 * cin * ((m // tw) * pw + m % tw)
+        for t4 in range(4):
+            for ks in range(ks_n):
+                for half, dk in enumerate((0, 8)):
+                    o = pb + koff[t4][ks][half]
+                    assert (pb & 0xFFFF) + (koff[t4][ks][half] & 0xFFFF) < 2**16  # no carry
+                    for e, off in enumerate((o & 0xFFFF, o >> 16)):
+                        assert off % 2 == 0
+                        a[m, ks * 16 + 2 * t4 + dk + e] = patch[off // 2]
+    # each valid k reads the pixel's receptive field in (tap, ci) order
+    field = torch.stack([torch.nn.functional.pad(x[0], (0, 0, 1, 1, 1, 1))[
+        m // tw:m // tw + 3, m % tw:m % tw + 3].reshape(-1) for m in range(th * tw)])
+    assert torch.equal(a[:, :k_n], field)
+    got = (a @ b).reshape(1, th, tw, cout)
+    want = tc3.conv3x3_plain(x.float(), w.float())  # fp32 sums in another order
+    np.testing.assert_allclose(got.numpy(), want.double().numpy(), rtol=1e-5, atol=1e-4)

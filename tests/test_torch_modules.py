@@ -20,7 +20,7 @@ from kidney_diffusion_tpu.models.unet import EfficientUNet as JaxUNet
 from kidney_diffusion_tpu_torch.convert import build_model, from_flax, init_stage_params
 from kidney_diffusion_tpu_torch.models import blocks as tb
 from kidney_diffusion_tpu_torch.models import configs as tcfg
-from test_torch_helpers import random_flax_params
+from test_torch_helpers import one_torch_thread, random_flax_params  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 

@@ -21,9 +21,10 @@ Tolerances:
   other places in the two frameworks, one ulp is 2^-8 relative);
 - whole int8 U-Nets: quantization turns a one-ulp bf16 difference near a
   rounding boundary into a whole int8 step, so the JAX package's own jitted
-  and eager runs of this model differ by 4.5e-2 normwise with bf16 storage
-  and 1.05e-1 with fp8 storage. The bounds are about 1.4x and 1.5x those:
-  2^-4 and 0.16.
+  and eager runs of this model differ by 4.5e-2 normwise with bf16 storage,
+  1.05e-1 with fp8 e4m3fn storage and 1.89e-1 with fp8 e5m2 (two mantissa
+  bits; chunks 4). The bounds are about 1.4x and 1.5x those: 2^-4, 0.16 and
+  0.28.
 """
 
 import dataclasses
@@ -47,10 +48,10 @@ from kidney_diffusion_tpu_torch.kernels import conv3x3 as tc3
 from kidney_diffusion_tpu_torch.models import blocks as tb
 from kidney_diffusion_tpu_torch.models import configs as tcfg
 from kidney_diffusion_tpu_torch.models.unet import cast_storage
-from test_torch_helpers import random_flax_params
+from test_torch_helpers import one_torch_thread, random_flax_params  # noqa: F401 (autouse)
 
 BF16_UNET_NORMWISE = 2.0**-6
-QUANT_UNET_NORMWISE = {None: 2.0**-4, "float8_e4m3fn": 0.16}
+QUANT_UNET_NORMWISE = {None: 2.0**-4, "float8_e4m3fn": 0.16, "float8_e5m2": 0.28}
 STATS_RTOL = 1e-5
 CONV_ATOL = 1e-3
 
@@ -179,18 +180,45 @@ def test_bias_in_dtype_matches_flax_conv():
     assert not torch.equal(got, once)  # the flag changes the rounding here
 
 
+@pytest.mark.parametrize("fp8", ["float8_e4m3fn", "float8_e5m2"])
 @pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
-def test_fp8_storage_follows_jax_overflow_rule(dtype):
+def test_fp8_storage_follows_jax_overflow_rule(dtype, fp8):
     """float8_e4m3fn has no infinity: JAX makes NaN of what rounds past 448,
-    torch saturates. The port's storage cast follows JAX."""
-    vals = np.array([460.0, 500.0, -600.0, 448.0, 464.0, 466.0, -1000.0, 0.3, -2.7e-3,
-                     np.inf, np.nan], np.float32)
-    want = np.asarray(jnp.asarray(vals, dtype).astype(jnp.float8_e4m3fn).astype(jnp.float32))
+    torch saturates. The port's storage cast follows JAX. float8_e5m2 has
+    infinities: 57344 is its largest value, from 61440 (the midpoint, a tie
+    to the even 2^16) a value rounds to inf, and inf and NaN stay."""
+    if fp8 == "float8_e4m3fn":
+        vals = [460.0, 500.0, -600.0, 448.0, 464.0, 466.0, -1000.0, 0.3, -2.7e-3, np.inf, np.nan]
+    else:
+        vals = [57344.0, 61440.0, -61440.0, 6e4, 1e5, 3.0e-5, 1e-6, 0.3, -2.7e-3, np.inf,
+                -np.inf, np.nan]
+    vals = np.array(vals, np.float32)
+    want = np.asarray(jnp.asarray(vals, dtype).astype(getattr(jnp, fp8)).astype(jnp.float32))
     tdt = torch.bfloat16 if dtype is jnp.bfloat16 else torch.float32
-    got = cast_storage(torch.from_numpy(vals).to(tdt), torch.float8_e4m3fn)
-    assert got.dtype == torch.float8_e4m3fn
+    got = cast_storage(torch.from_numpy(vals).to(tdt), getattr(torch, fp8))
+    assert got.dtype == getattr(torch, fp8)
     np.testing.assert_array_equal(got.float().numpy(), want)  # NaN where JAX has NaN
-    assert np.isnan(want[[1, 2, 5, 6, 9, 10]]).all() and want[0] == 448.0
+    if fp8 == "float8_e4m3fn":
+        assert np.isnan(want[[1, 2, 5, 6, 9, 10]]).all() and want[0] == 448.0
+    else:
+        assert want[0] == want[3] == 57344.0 and np.isnan(want[11])
+        assert list(want[[1, 2, 4, 9, 10]]) == [np.inf, -np.inf, np.inf, np.inf, -np.inf]
+
+
+@pytest.mark.parametrize("special", [None, np.inf, -np.inf, np.nan])
+def test_dynamic_amax_of_e5m2_matches_jax(special):
+    """The re-anchor amax of an e5m2-stored map, reduced in e5m2 (the low 7
+    bits order |x|, inf below NaN): equal to JAX's `jnp.max(jnp.abs(x))`,
+    an inf staying inf and a NaN propagating."""
+    y = (300.0 * np.random.default_rng(11).normal(size=(2, 8, 8, 16))).astype(np.float32)
+    if special is not None:
+        y[1, 3, 4, 5] = special
+    want = float(jb.dynamic_amax(jnp.asarray(y).astype(jnp.float8_e5m2)))
+    got = tb.dynamic_amax(cast_storage(_t(y), torch.float8_e5m2))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(float(got), want)
+    if special is not None:
+        assert not np.isfinite(want)
 
 
 def test_quant_site_gate_matches_jax(monkeypatch):
@@ -255,14 +283,14 @@ def test_quant_resnet_block_matches_jax(every_site_quant, chunks):
     np.testing.assert_allclose(float(got_amax), float(want_amax), rtol=2.0**-8)
 
 
-@pytest.mark.parametrize("storage", [None, "float8_e4m3fn"])
+@pytest.mark.parametrize("storage", [None, "float8_e4m3fn", "float8_e5m2"])
 def test_quant_upsample_matches_jax(every_site_quant, storage):
     rng = np.random.default_rng(9)
     x = rng.normal(size=(4, 2, 8, 32)).astype(np.float32)
     jx = jnp.asarray(x, jnp.bfloat16)
     tx = _t(x, torch.bfloat16)
     if storage:
-        jx, tx = jx.astype(jnp.float8_e4m3fn), cast_storage(tx, torch.float8_e4m3fn)
+        jx, tx = jx.astype(getattr(jnp, storage)), cast_storage(tx, getattr(torch, storage))
     jmod = jb.Upsample(16, jnp.bfloat16, chunks=2, quant=True)
     params = random_flax_params(lambda: jmod.init(jax.random.PRNGKey(0), jx, jnp.float32(1.0)))
     want, want_amax = jmod.apply(params, jx, jnp.float32(3.5))
@@ -320,8 +348,8 @@ def _unet_pair(jax_cfg, port_cfg, size, batch, seed, init_conv_out=None):
     return _np(got), want
 
 
-@pytest.mark.parametrize("storage", [None, "float8_e4m3fn"])
-@pytest.mark.parametrize("chunks", [0, 4])
+@pytest.mark.parametrize("chunks,storage", [(0, None), (0, "float8_e4m3fn"), (4, None),
+                                            (4, "float8_e4m3fn"), (4, "float8_e5m2")])
 def test_tiny_quant_unet_matches_jax(every_site_quant, chunks, storage):
     """The whole int8 (+ fp8 storage) U-Net, every conv site quantized, scales
     from propagated ranges: within the stated normwise bound of JAX."""
@@ -430,3 +458,20 @@ def test_cascade_serves_the_overrides_on_the_cpu(every_site_quant, monkeypatch):
                          ddim_steps=2, output_dtype="uint8")
     assert out.shape == (2, 32, 32, 3) and out.dtype == torch.uint8
     assert batches and set(batches) == {4}  # cond + uncond halves in one tensor
+
+
+def test_cascade_serves_e5m2_storage_on_the_cpu():
+    """`Cascade.sample` with float8_e5m2 activation storage (the CLIs'
+    `--activation_storage float8_e5m2`) on the tiny cascade's stage 2:
+    every stored map cast as JAX casts it, the re-anchors reduced in e5m2;
+    it finishes with a finite image."""
+    cfg = tcfg.serving_overrides(tcfg.tiny_test_cascade(), storage="float8_e5m2",
+                                 min_image_size=32)
+    assert [s.unet.storage_dtype for s in cfg.stages] == [None, "float8_e5m2"]
+    cascade = Cascade(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    params = [cascade.init_stage_params(n, gen) for n in (1, 2)]
+    for p in params:
+        p["final_conv.kernel"].normal_(0.0, 0.05, generator=gen)
+    out = cascade.sample(params, gen, batch_size=2, ddim_steps=2)
+    assert out.shape == (2, 32, 32, 3) and torch.isfinite(out).all()

@@ -21,7 +21,7 @@ from kidney_diffusion_tpu_torch.convert import from_flax
 from kidney_diffusion_tpu_torch.core import diffusion as tdiff
 from kidney_diffusion_tpu_torch.core.schedules import GaussianDiffusion as TorchGD
 from kidney_diffusion_tpu_torch.models import configs as tcfg
-from test_torch_helpers import random_flax_params
+from test_torch_helpers import one_torch_thread, random_flax_params  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 

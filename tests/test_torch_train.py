@@ -33,7 +33,7 @@ from kidney_diffusion_tpu_torch.core.schedules import GaussianDiffusion as Torch
 from kidney_diffusion_tpu_torch.models import configs as tcfg
 from kidney_diffusion_tpu_torch.train import Trainer, optim
 from kidney_diffusion_tpu_torch.utils import checkpoint as tckpt
-from test_torch_helpers import random_flax_params
+from test_torch_helpers import one_torch_thread, random_flax_params  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 
